@@ -1,0 +1,57 @@
+"""Captioning task head, ported from prismer_tpu/models/caption.py
+(generation only): beam 3, max_length 20, min_length 8.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from prismer_tpu_torch.data.device import materialize_experts
+from prismer_tpu_torch.models.generation import beam_search
+from prismer_tpu_torch.models.prismer import Prismer, compute_dtype
+
+GEN_NUM_BEAMS = 3
+GEN_MAX_LENGTH = 20
+GEN_MIN_LENGTH = 8
+
+
+def build_generate_fn(model: Prismer, *, num_beams: int = GEN_NUM_BEAMS,
+                      max_length: int = GEN_MAX_LENGTH,
+                      min_length: int = GEN_MIN_LENGTH,
+                      length_penalty: float = 1.0):
+    """The serving entry point: raw expert batch -> caption token ids.
+
+    fn(experts_raw, prompt_ids, prompt_mask, instance_slots=None) runs
+    materialize_experts -> encode -> beam_search on the device of its inputs
+    and returns (B, max_length) int64 ids."""
+    dtype = compute_dtype(model.cfg)
+    dec = model.cfg.decoder
+
+    @torch.no_grad()
+    def fn(experts_raw: Dict[str, Any], prompt_ids: torch.Tensor,
+           prompt_mask: torch.Tensor,
+           instance_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+        experts = materialize_experts(experts_raw, dtype)
+        enc = model.encode(experts, instance_slots)
+        seqs, _ = beam_search(
+            model, enc, prompt_ids, prompt_mask, num_beams=num_beams,
+            max_length=max_length, min_length=min_length,
+            length_penalty=length_penalty, eos_token_id=dec.eos_token_id,
+            pad_token_id=dec.pad_token_id)
+        return seqs
+
+    return fn
+
+
+def decode_captions(seqs, tokenizer, prefix: str) -> List[str]:
+    """Decode with any tokenizer that has `decode(ids,
+    skip_special_tokens=True)` and strip the prefix."""
+    captions = []
+    space = 1 if len(prefix) > 0 else 0
+    for row in np.asarray(seqs):
+        text = tokenizer.decode(row, skip_special_tokens=True)
+        captions.append(text[len(prefix) + space:])
+    return captions

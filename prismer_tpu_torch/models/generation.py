@@ -1,0 +1,137 @@
+"""KV-cached beam search, ported from prismer_tpu/models/generation.py.
+
+HF beam-search semantics, as in JAX:
+  * beams expand to 2K candidates per step; EOS candidates ranked >= K are
+    dropped; EOS candidates within the top K retire to the finished set with
+    score = sum_logprob / len**length_penalty; the top-K non-EOS candidates
+    continue (ops/beam_update: the CUDA kernel on the card);
+  * EOS is masked while cur_len < min_length;
+  * early_stopping=False done rule; at the end, still-alive beams join the
+    finished pool for samples that never finished.
+
+The loop is plain Python: one host sync per step reads the all-done flag.
+The self cache is reordered by the flat beam permutation (index_select on
+the row axis); cross K/V are per sample and never move.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from prismer_tpu_torch.models.prismer import Prismer
+from prismer_tpu_torch.ops.beam_update import NEG_INF, beam_update
+
+
+def lazy_top_candidates(logits: torch.Tensor, alive_scores: torch.Tensor,
+                        kk: int, eos_token_id: int, mask_eos: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact top-kk of cand[b, k, v] = alive[b, k] + log_softmax(logits)[b,
+    k, v] over the flat (K*V) axis, the EOS lane forced to alive + NEG_INF
+    while `mask_eos` (min-length rule). Ties go lowest flat index first.
+
+    Same op order as the JAX function (alive + ((x - max) - log(sum exp)));
+    unlike it, this plain version materialises the candidate matrix.
+    Returns (vals (B, kk) fp32, beam (B, kk) int32, token (B, kk) int32)."""
+    b, k, v = logits.shape
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True)
+    ls = torch.log(torch.exp(logits - m).sum(dim=-1, keepdim=True))
+    cand = alive_scores[:, :, None] + ((logits - m) - ls)
+    if mask_eos:
+        cand[:, :, eos_token_id] = alive_scores + NEG_INF
+    cand = cand.reshape(b, k * v)
+    # -inf would tie with other -inf lanes; clamp as JAX exact_top_k does
+    cand = torch.where(torch.isneginf(cand),
+                       torch.full_like(cand, torch.finfo(cand.dtype).min),
+                       cand)
+    vals, idx = torch.sort(cand, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :kk].contiguous(), idx[:, :kk]
+    return (vals, torch.div(idx, v, rounding_mode="floor").to(torch.int32),
+            (idx % v).to(torch.int32))
+
+
+def _pen(length: int, length_penalty: float) -> float:
+    """cur_len ** length_penalty as an fp32 value (JAX computes it in f32)."""
+    return float(np.float32(length) ** np.float32(length_penalty))
+
+
+@torch.no_grad()
+def beam_search(model: Prismer, encoder_hidden_states: torch.Tensor,
+                prompt_ids: torch.Tensor, prompt_mask: torch.Tensor, *,
+                num_beams: int, max_length: int, min_length: int,
+                length_penalty: float = 1.0, eos_token_id: int = 2,
+                pad_token_id: int = 1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (sequences (B, max_length) int64, scores (B,) fp32).
+
+    max_length / min_length count the whole sequence, prompt included."""
+    b, p = prompt_ids.shape
+    k, t = num_beams, max_length
+    if p >= t:
+        raise ValueError("prompt longer than max_length")
+    dev = prompt_ids.device
+    prompt_ids = prompt_ids.to(torch.int32)
+    prompt_mask = prompt_mask.to(torch.int32)
+
+    ids_tiled = prompt_ids.repeat_interleave(k, dim=0)
+    mask_tiled = prompt_mask.repeat_interleave(k, dim=0)
+    last_logits, cache = model.init_cache(
+        ids_tiled, mask_tiled, encoder_hidden_states, t, k)
+    logits = last_logits.reshape(b, k, -1)
+
+    alive_seqs = torch.full((b * k, t), pad_token_id, dtype=torch.int32,
+                            device=dev)
+    alive_seqs[:, :p] = ids_tiled
+    alive_scores = torch.full((b, k), NEG_INF, dtype=torch.float32,
+                              device=dev)
+    alive_scores[:, 0] = 0.0
+    finished_seqs = torch.full_like(alive_seqs, pad_token_id)
+    finished_scores = torch.full((b, k), NEG_INF, dtype=torch.float32,
+                                 device=dev)
+    prompt_nonpad = prompt_mask.sum(dim=1)                     # (B,)
+    positions = torch.arange(t, device=dev)[None, :]
+    prompt_cols = torch.zeros((b, t), dtype=torch.int32, device=dev)
+    prompt_cols[:, :p] = prompt_mask
+
+    def batch_done(index: int) -> torch.Tensor:
+        pen = torch.tensor(_pen(index, length_penalty), device=dev)
+        return finished_scores.amin(dim=1) >= alive_scores.amax(dim=1) / pen
+
+    index = p
+    while index < t and not bool(batch_done(index).all()):
+        top = lazy_top_candidates(logits, alive_scores, 2 * k, eos_token_id,
+                                  index < min_length)
+        (alive_seqs, alive_scores, finished_seqs, finished_scores, tokens,
+         flat_beam) = beam_update(
+            *top, alive_seqs, alive_scores, finished_seqs, finished_scores,
+            index, _pen(index, length_penalty), eos_token_id=eos_token_id,
+            pad_token_id=pad_token_id)
+
+        flat = flat_beam.reshape(-1).long()
+        cache["self_k"] = cache["self_k"].index_select(1, flat)
+        cache["self_v"] = cache["self_v"].index_select(1, flat)
+
+        pos_ids = prompt_nonpad + (index - p) + 1 + pad_token_id   # (B,)
+        pos_ids = pos_ids.repeat_interleave(k)
+        key_mask_b = torch.where(positions < p, prompt_cols,
+                                 (positions <= index).to(torch.int32))
+        key_mask = key_mask_b.repeat_interleave(k, dim=0)
+        step_logits, cache = model.decode_step(
+            tokens.reshape(-1), index, pos_ids, key_mask, cache, k)
+        logits = step_logits.reshape(b, k, -1)
+        index += 1
+
+    alive_pen = alive_scores / torch.tensor(_pen(index, length_penalty),
+                                            device=dev)
+    not_done = ~batch_done(index)
+    alive_pen = torch.where(not_done[:, None], alive_pen,
+                            torch.full_like(alive_pen, NEG_INF))
+    all_scores = torch.cat([finished_scores, alive_pen], dim=1)
+    all_seqs = torch.cat([finished_seqs.reshape(b, k, t),
+                          alive_seqs.reshape(b, k, t)], dim=1)
+    best = all_scores.argmax(dim=1)
+    rows = torch.arange(b, device=dev)
+    return all_seqs[rows, best].long(), all_scores[rows, best]

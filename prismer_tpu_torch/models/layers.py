@@ -1,0 +1,241 @@
+"""Shared building blocks, ported from prismer_tpu/models/layers.py.
+
+Numerics follow the JAX package:
+  * `LayerNorm` is an fp32 island: statistics and affine in fp32 (two-pass
+    mean/variance, the JAX CPU default), result cast back to the input dtype.
+  * `Dense` / `Conv` hold their weights in the compute dtype and cast their
+    input to it, as flax `Dense(dtype=...)` casts kernel, bias and input.
+  * Attention scores and logits accumulate in fp32 from compute-dtype
+    operands (`matmul_f32`); softmax runs in fp32 and its probabilities are
+    cast to the compute dtype before the PV product.
+Layouts are batch-first (B, L, D) and NHWC for images, as in JAX.
+`ln_proj` and the packed-qkv projection are off by default in JAX and are
+not ported.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from prismer_tpu_torch.ops.flash_attention import (NEG_INF, flash_attention,
+                                                   packed_attention)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(1.702 x), CLIP's GELU approximation."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def squared_relu(x: torch.Tensor) -> torch.Tensor:
+    r = F.relu(x)
+    return r * r
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU."""
+    return F.gelu(x)
+
+
+ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "gelu": gelu_exact,
+    "quick_gelu": quick_gelu,
+    "squared_relu": squared_relu,
+}
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with fp32 accumulation and an fp32 result from compute-dtype
+    operands (JAX `preferred_element_type=float32`). Products of bf16 values
+    are exact in fp32, so upcasting the operands gives the same sum."""
+    return torch.matmul(a.float(), b.float())
+
+
+def fp32_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var, mean = torch.var_mean(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    y = y * weight.float() + bias.float()
+    return y.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """fp32-pinned LayerNorm with learnable weight/bias (flax scale/bias)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fp32_layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class Dense(nn.Linear):
+    """nn.Linear in the compute dtype that casts its input to that dtype."""
+
+    def __init__(self, in_features: int, out_features: int, dtype,
+                 device=None):
+        super().__init__(in_features, out_features, device=device,
+                         dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class Conv(nn.Conv2d):
+    """Bias-free nn.Conv2d in the compute dtype on NHWC tensors."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int,
+                 padding: int, dtype, device=None):
+        super().__init__(in_ch, out_ch, kernel, stride=stride,
+                         padding=padding, bias=False, device=device,
+                         dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x.to(self.weight.dtype).permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _bicubic_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) 1-D bicubic matrix of F.interpolate(mode='bicubic',
+    align_corners=False): cubic kernel a = -0.75, edge-clamped taps."""
+    a = -0.75
+
+    def kernel(t: float) -> float:
+        t = abs(t)
+        if t <= 1.0:
+            return (a + 2.0) * t ** 3 - (a + 3.0) * t ** 2 + 1.0
+        if t < 2.0:
+            return a * t ** 3 - 5.0 * a * t ** 2 + 8.0 * a * t - 4.0 * a
+        return 0.0
+
+    scale = in_size / out_size
+    mat = np.zeros((out_size, in_size), dtype=np.float64)
+    for i in range(out_size):
+        src = (i + 0.5) * scale - 0.5
+        base = int(np.floor(src))
+        frac = src - base
+        for k in range(-1, 3):
+            idx = min(max(base + k, 0), in_size - 1)
+            mat[i, idx] += kernel(k - frac)
+    return mat.astype(np.float32)
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor,
+                          target_len: int) -> torch.Tensor:
+    """Resize a square (L, D) positional-embedding grid to target_len tokens
+    (bicubic, a = -0.75, align_corners=False), in fp32."""
+    orig = int(round(pos_embed.shape[0] ** 0.5))
+    new = int(round(target_len ** 0.5))
+    if orig == new:
+        return pos_embed
+    d = pos_embed.shape[-1]
+    w = torch.from_numpy(_bicubic_matrix(orig, new)).to(pos_embed.device)
+    grid = pos_embed.float().reshape(orig, orig, d)
+    out = torch.einsum("oi,ijd->ojd", w, grid)
+    out = torch.einsum("oj,sjd->sod", w, out)
+    return out.reshape(new * new, d).to(pos_embed.dtype)
+
+
+class Mlp(nn.Module):
+    """c_fc -> activation -> c_proj."""
+
+    def __init__(self, dim: int, hidden: int, out: int, activation: str,
+                 dtype, device=None):
+        super().__init__()
+        self.act = ACTIVATIONS[activation]
+        self.c_fc = Dense(dim, hidden, dtype, device)
+        self.c_proj = Dense(hidden, out, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.c_proj(self.act(self.c_fc(x)))
+
+
+class Adaptor(nn.Module):
+    """Dim-preserving adaptor up(sq_relu(down(.))) with residual + LN.
+
+    norm_late=False (ViT): x + adaptor(LN(x));
+    norm_late=True (decoder): LN(adaptor(x) + x)."""
+
+    def __init__(self, dim: int, norm_late: bool, dtype, device=None,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.norm_late = norm_late
+        self.down_proj = Dense(dim, dim, dtype, device)
+        self.up_proj = Dense(dim, dim, dtype, device)
+        self.adaptor_ln = LayerNorm(dim, eps, device)
+
+    def _proj(self, h: torch.Tensor) -> torch.Tensor:
+        return self.up_proj(squared_relu(self.down_proj(h)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.norm_late:
+            return self.adaptor_ln(self._proj(x) + x)
+        return self._proj(self.adaptor_ln(x)) + x
+
+
+def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    b, l, d = x.shape
+    return x.reshape(b, l, num_heads, d // num_heads).permute(0, 2, 1, 3)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, l, dh = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, l, h * dh)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              key_mask: Optional[torch.Tensor] = None,
+              causal: bool = False) -> torch.Tensor:
+    """Structured-mask attention on (B, H, L, Dh): the flash kernel on CUDA,
+    its plain version on the CPU. key_mask (B, Lk), 1 = valid."""
+    return flash_attention(q, k, v, key_mask, causal)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          mask_bias: Optional[torch.Tensor] = None,
+                          ) -> torch.Tensor:
+    """Plain attention with an additive fp32 bias broadcastable to
+    (B, H, Lq, Lk); fp32 softmax, probabilities cast to v's dtype."""
+    scores = matmul_f32(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(
+        q.shape[-1]))
+    if mask_bias is not None:
+        scores = scores + mask_bias.float()
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return matmul_f32(probs, v).to(v.dtype)
+
+
+def padding_mask_bias(attention_mask: torch.Tensor) -> torch.Tensor:
+    """(B, Lk) {0,1} mask -> (B, 1, 1, Lk) additive fp32 bias."""
+    bias = (1.0 - attention_mask.float()) * NEG_INF
+    return bias[:, None, None, :]
+
+
+class MultiHeadAttention(nn.Module):
+    """MHA with separate q/k/v/out projections, batch-first, optional
+    distinct key/value source; attention through the packed flash kernel."""
+
+    def __init__(self, dim: int, num_heads: int, dtype, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q_proj = Dense(dim, dim, dtype, device)
+        self.k_proj = Dense(dim, dim, dtype, device)
+        self.v_proj = Dense(dim, dim, dtype, device)
+        self.out_proj = Dense(dim, dim, dtype, device)
+
+    def forward(self, x: torch.Tensor,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        kv = x if kv is None else kv
+        out = packed_attention(self.q_proj(x), self.k_proj(kv),
+                               self.v_proj(kv), self.num_heads)
+        return self.out_proj(out)

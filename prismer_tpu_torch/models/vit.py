@@ -1,0 +1,185 @@
+"""Multi-modal ViT encoder, ported from prismer_tpu/models/vit.py.
+
+Per-modality stems (a VALID patch conv for rgb; bilinear resize + conv/BN/
+ReLU stacks for the expert label maps), the shared positional embedding
+re-interpolated per modality, the random-slot instance embedding for
+obj_detection, the Perceiver resampler over all expert tokens, and a trunk
+of pre-LN blocks with an adaptor between attention and MLP. Inputs are NHWC
+and activations batch-first (B, L, D), as in JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from prismer_tpu_torch.config import VisionEncoderConfig
+from prismer_tpu_torch.models.layers import (Adaptor, Conv, LayerNorm, Mlp,
+                                             MultiHeadAttention,
+                                             interpolate_pos_embed)
+from prismer_tpu_torch.models.resampler import PerceiverResampler
+from prismer_tpu_torch.ops.resize import (bilinear_resize_align_corners,
+                                          nearest_resize)
+
+ID_MAP_EXPERTS = ("seg", "obj_detection", "ocr_detection")
+
+
+def draw_instance_slots(max_instances: int, num_slots: int,
+                        generator: torch.Generator) -> torch.Tensor:
+    """One random slot of the instance table per possible instance id.
+
+    The JAX package draws these from a jax.random key; no torch generator
+    reproduces those bits, so callers that need both packages to agree pass
+    the same slots to each (`VisionTransformer.forward(instance_slots=)`)."""
+    return torch.randint(0, num_slots, (max_instances,), generator=generator)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over the last (channel) axis, in fp32 from the
+    running statistics (flax BatchNorm(use_running_average=True,
+    dtype=float32) operation order)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.register_buffer("running_mean", torch.zeros(dim, device=device))
+        self.register_buffer("running_var", torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x.float() - self.running_mean) * mul + self.bias
+
+
+class ResidualAttentionBlock(nn.Module):
+    """Pre-LN CLIP block with the adaptor between attention and MLP."""
+
+    def __init__(self, dim: int, num_heads: int, dtype, device=None):
+        super().__init__()
+        self.ln_1 = LayerNorm(dim, device=device)
+        self.attn = MultiHeadAttention(dim, num_heads, dtype, device)
+        self.adaptor = Adaptor(dim, False, dtype, device)
+        self.ln_2 = LayerNorm(dim, device=device)
+        self.mlp = Mlp(dim, dim * 4, dim, "quick_gelu", dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x))
+        x = self.adaptor(x)
+        return x + self.mlp(self.ln_2(x))
+
+
+class LabelStem(nn.Module):
+    """Downsampling conv stack for expert label maps.
+
+    id_map=True: bilinear scale 4/patch, strides (2, 2, 1, 1) (64-channel
+    experts); id_map=False: scale 16/patch, strides (2, 2, 2, 2) (dense
+    experts). Bias-free convs; BatchNorm + ReLU after each but the final 1x1.
+    """
+
+    def __init__(self, in_ch: int, width: int, patch_size: int, id_map: bool,
+                 dtype, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = (4 if id_map else 16) / patch_size
+        strides = (2, 2, 1, 1) if id_map else (2, 2, 2, 2)
+        widths = (width // 8, width // 4, width // 2, width)
+        cin = in_ch
+        for i, (s, f) in enumerate(zip(strides, widths)):
+            self.add_module(f"Conv_{i}", Conv(cin, f, 3, s, 1, dtype, device))
+            self.add_module(f"bn_{i}", BatchNorm(f, device=device))
+            cin = f
+        self.proj = Conv(width, width, 1, 1, 0, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[1], x.shape[2]
+        x = bilinear_resize_align_corners(x.to(self.dtype), int(h * self.scale),
+                                          int(w * self.scale))
+        for i in range(4):
+            x = getattr(self, f"Conv_{i}")(x)
+            x = F.relu(getattr(self, f"bn_{i}")(x).to(self.dtype))
+        return self.proj(x)
+
+
+class VisionTransformer(nn.Module):
+    """The full multi-modal encoder. Returns (B, L, D) in the compute dtype."""
+
+    def __init__(self, cfg: VisionEncoderConfig, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        width = cfg.width
+        self.positional_embedding = nn.Parameter(
+            torch.zeros(cfg.rgb_tokens, width, device=device))
+        for exp, ch in cfg.experts:
+            if exp == "rgb":
+                self.conv1_rgb = Conv(ch, width, cfg.patch_size,
+                                      cfg.patch_size, 0, dtype, device)
+            else:
+                self.add_module(f"conv1_{exp}", LabelStem(
+                    ch, width, cfg.patch_size, exp in ID_MAP_EXPERTS, dtype,
+                    device))
+        if "obj_detection" in cfg.experts_dict:
+            self.instance_embedding = nn.Parameter(
+                torch.zeros(cfg.num_instance_slots, width, device=device))
+        if cfg.has_experts:
+            self.resampler = PerceiverResampler(
+                width, cfg.resampler_layers, cfg.resampler_heads,
+                cfg.resampler_latents, dtype, device)
+        self.ln_pre = LayerNorm(width, device=device)
+        for i in range(cfg.layers):
+            self.add_module(f"resblocks_{i}", ResidualAttentionBlock(
+                width, cfg.heads, dtype, device))
+        self.ln_post = LayerNorm(width, device=device)
+
+    def forward(self, inputs: Dict[str, Any],
+                instance_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.cfg
+        pos = self.positional_embedding
+        experts_tokens = []
+        rgb_tokens = None
+        for exp, _ in cfg.experts:
+            if exp not in inputs:
+                raise KeyError(f"missing modality input: {exp}")
+            if exp == "rgb":
+                x = self.conv1_rgb(inputs[exp])
+            elif exp == "obj_detection":
+                x = getattr(self, f"conv1_{exp}")(inputs[exp]["label"])
+                x = self._add_instance_embedding(
+                    x, inputs[exp]["instance"], instance_slots)
+            else:
+                x = getattr(self, f"conv1_{exp}")(inputs[exp])
+            b, h, w, d = x.shape
+            x = x.reshape(b, h * w, d)
+            if exp == "rgb":
+                rgb_tokens = x + pos.to(x.dtype)
+            else:
+                pe = interpolate_pos_embed(pos, x.shape[1]).to(x.dtype)
+                experts_tokens.append(x + pe)
+
+        if experts_tokens:
+            latents = self.resampler(torch.cat(experts_tokens, dim=1))
+            x = torch.cat([rgb_tokens, latents], dim=1)
+        else:
+            x = rgb_tokens
+        x = self.ln_pre(x)
+        for i in range(cfg.layers):
+            x = getattr(self, f"resblocks_{i}")(x)
+        return self.ln_post(x)
+
+    def _add_instance_embedding(self, x: torch.Tensor, instance: torch.Tensor,
+                                slots: Optional[torch.Tensor]) -> torch.Tensor:
+        """x (B, h, w, D) + the table row of each instance id's slot; the
+        (B, H, W, 1) id map is nearest-downsampled to the stem grid."""
+        cfg = self.cfg
+        if slots is None:  # a fixed draw, as JAX uses a fixed key
+            slots = draw_instance_slots(cfg.max_instances,
+                                        cfg.num_instance_slots,
+                                        torch.Generator().manual_seed(0))
+        slots = slots.to(device=x.device, dtype=torch.long)
+        inst = nearest_resize(instance.long(), x.shape[1], x.shape[2])[..., 0]
+        return x + self.instance_embedding.to(x.dtype)[slots[inst]]

@@ -1,0 +1,1 @@
+"""Kernel wrappers (CUDA on the card, plain PyTorch on the CPU)."""

@@ -11,7 +11,8 @@ import torch
 
 from prismer_tpu_torch.data.device import materialize_experts
 from prismer_tpu_torch.models.generation import beam_search
-from prismer_tpu_torch.models.prismer import Prismer, compute_dtype
+from prismer_tpu_torch.models.prismer import (Prismer, compute_dtype,
+                                              prepare_serving_variables)
 
 GEN_NUM_BEAMS = 3
 GEN_MAX_LENGTH = 20
@@ -26,9 +27,13 @@ def build_generate_fn(model: Prismer, *, num_beams: int = GEN_NUM_BEAMS,
 
     fn(experts_raw, prompt_ids, prompt_mask, instance_slots=None) runs
     materialize_experts -> encode -> beam_search on the device of its inputs
-    and returns (B, max_length) int64 ids."""
+    and returns (B, max_length) int64 ids. When fused decode is in use on
+    the model's device (the default on CUDA), the serving state (packed
+    decoder weights, compute-dtype embedding, fp32 LM bias) is built here,
+    once, and every call decodes through ops/fused_decode and ops/lm_topk."""
     dtype = compute_dtype(model.cfg)
     dec = model.cfg.decoder
+    serving = prepare_serving_variables(model)
 
     @torch.no_grad()
     def fn(experts_raw: Dict[str, Any], prompt_ids: torch.Tensor,
@@ -40,7 +45,7 @@ def build_generate_fn(model: Prismer, *, num_beams: int = GEN_NUM_BEAMS,
             model, enc, prompt_ids, prompt_mask, num_beams=num_beams,
             max_length=max_length, min_length=min_length,
             length_penalty=length_penalty, eos_token_id=dec.eos_token_id,
-            pad_token_id=dec.pad_token_id)
+            pad_token_id=dec.pad_token_id, serving=serving)
         return seqs
 
     return fn

@@ -10,19 +10,28 @@ HF beam-search semantics, as in JAX:
     finished pool for samples that never finished.
 
 The loop is plain Python: one host sync per step reads the all-done flag.
-The self cache is reordered by the flat beam permutation (index_select on
-the row axis); cross K/V are per sample and never move.
+Cross K/V are per sample and never move. Two decode paths, as in JAX:
+  * fused (roberta.use_fused_decode, the default on CUDA): the self-cache
+    reorder is folded into the fused decode step (`perm`); with the serving
+    state of prismer.prepare_serving_variables the loop carries the (N, D)
+    LM-head features and ops/lm_topk projects and selects the top 2K in one
+    call, so the (N, V) logits never reach Python;
+  * per layer: the self cache is reordered by the flat beam permutation
+    (index_select on the row axis), and lazy_top_candidates selects from
+    the logits.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from prismer_tpu_torch.models.prismer import Prismer
+from prismer_tpu_torch.models.roberta import use_fused_decode
 from prismer_tpu_torch.ops.beam_update import NEG_INF, beam_update
+from prismer_tpu_torch.ops.lm_topk import lm_topk
 
 
 def lazy_top_candidates(logits: torch.Tensor, alive_scores: torch.Tensor,
@@ -63,24 +72,30 @@ def beam_search(model: Prismer, encoder_hidden_states: torch.Tensor,
                 prompt_ids: torch.Tensor, prompt_mask: torch.Tensor, *,
                 num_beams: int, max_length: int, min_length: int,
                 length_penalty: float = 1.0, eos_token_id: int = 2,
-                pad_token_id: int = 1
+                pad_token_id: int = 1,
+                serving: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (sequences (B, max_length) int64, scores (B,) fp32).
 
-    max_length / min_length count the whole sequence, prompt included."""
+    max_length / min_length count the whole sequence, prompt included.
+    `serving` is prismer.prepare_serving_variables' state: on the fused
+    path it supplies the packed weights and switches on ops/lm_topk."""
     b, p = prompt_ids.shape
     k, t = num_beams, max_length
     if p >= t:
         raise ValueError("prompt longer than max_length")
     dev = prompt_ids.device
+    fused = use_fused_decode(dev)
+    use_lm_topk = fused and serving is not None and "emb" in serving
     prompt_ids = prompt_ids.to(torch.int32)
     prompt_mask = prompt_mask.to(torch.int32)
 
     ids_tiled = prompt_ids.repeat_interleave(k, dim=0)
     mask_tiled = prompt_mask.repeat_interleave(k, dim=0)
-    last_logits, cache = model.init_cache(
-        ids_tiled, mask_tiled, encoder_hidden_states, t, k)
-    logits = last_logits.reshape(b, k, -1)
+    # with lm_topk the loop carries the (N, D) LM-head features, not logits
+    out, cache = model.init_cache(
+        ids_tiled, mask_tiled, encoder_hidden_states, t, k,
+        return_h=use_lm_topk, packed=serving if fused else None)
 
     alive_seqs = torch.full((b * k, t), pad_token_id, dtype=torch.int32,
                             device=dev)
@@ -102,26 +117,33 @@ def beam_search(model: Prismer, encoder_hidden_states: torch.Tensor,
 
     index = p
     while index < t and not bool(batch_done(index).all()):
-        top = lazy_top_candidates(logits, alive_scores, 2 * k, eos_token_id,
-                                  index < min_length)
+        if use_lm_topk:
+            top = lm_topk(out, serving["emb"], serving["lm_bias"],
+                          alive_scores, index < min_length, beams=k,
+                          kk=2 * k, eos_token_id=eos_token_id)
+        else:
+            top = lazy_top_candidates(out.reshape(b, k, -1), alive_scores,
+                                      2 * k, eos_token_id, index < min_length)
         (alive_seqs, alive_scores, finished_seqs, finished_scores, tokens,
          flat_beam) = beam_update(
             *top, alive_seqs, alive_scores, finished_seqs, finished_scores,
             index, _pen(index, length_penalty), eos_token_id=eos_token_id,
             pad_token_id=pad_token_id)
 
-        flat = flat_beam.reshape(-1).long()
-        cache["self_k"] = cache["self_k"].index_select(1, flat)
-        cache["self_v"] = cache["self_v"].index_select(1, flat)
+        perm = flat_beam.reshape(-1)
+        if not fused:
+            cache["self_k"] = cache["self_k"].index_select(1, perm.long())
+            cache["self_v"] = cache["self_v"].index_select(1, perm.long())
+            perm = None
 
         pos_ids = prompt_nonpad + (index - p) + 1 + pad_token_id   # (B,)
         pos_ids = pos_ids.repeat_interleave(k)
         key_mask_b = torch.where(positions < p, prompt_cols,
                                  (positions <= index).to(torch.int32))
         key_mask = key_mask_b.repeat_interleave(k, dim=0)
-        step_logits, cache = model.decode_step(
-            tokens.reshape(-1), index, pos_ids, key_mask, cache, k)
-        logits = step_logits.reshape(b, k, -1)
+        out, cache = model.decode_step(
+            tokens.reshape(-1), index, pos_ids, key_mask, cache, k,
+            perm=perm, return_h=use_lm_topk)
         index += 1
 
     alive_pen = alive_scores / torch.tensor(_pen(index, length_penalty),

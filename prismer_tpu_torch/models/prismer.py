@@ -16,7 +16,9 @@ import torch.nn as nn
 
 from prismer_tpu_torch.config import PrismerConfig
 from prismer_tpu_torch.models.layers import Conv, Dense, LayerNorm
-from prismer_tpu_torch.models.roberta import Cache, RobertaCausalDecoder
+from prismer_tpu_torch.models.roberta import (Cache, RobertaCausalDecoder,
+                                              pack_decode_collection,
+                                              use_fused_decode)
 from prismer_tpu_torch.models.vit import BatchNorm, VisionTransformer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -56,16 +58,36 @@ class Prismer(nn.Module):
     def init_cache(self, input_ids: torch.Tensor,
                    attention_mask: torch.Tensor,
                    encoder_hidden_states: torch.Tensor, max_len: int,
-                   beams: int = 1) -> Tuple[torch.Tensor, Cache]:
+                   beams: int = 1, return_h: bool = False,
+                   packed: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, Cache]:
         return self.text_decoder.init_cache(
-            input_ids, attention_mask, encoder_hidden_states, max_len, beams)
+            input_ids, attention_mask, encoder_hidden_states, max_len, beams,
+            return_h=return_h, packed=packed)
 
     def decode_step(self, token_ids: torch.Tensor, index: int,
                     position_ids: torch.Tensor, key_mask: torch.Tensor,
-                    cache: Cache, beams: int = 1
-                    ) -> Tuple[torch.Tensor, Cache]:
-        return self.text_decoder.decode_step(token_ids, index, position_ids,
-                                             key_mask, cache, beams)
+                    cache: Cache, beams: int = 1,
+                    cross_len: Optional[int] = None,
+                    perm: Optional[torch.Tensor] = None,
+                    return_h: bool = False) -> Tuple[torch.Tensor, Cache]:
+        return self.text_decoder.decode_step(
+            token_ids, index, position_ids, key_mask, cache, beams,
+            cross_len=cross_len, perm=perm, return_h=return_h)
+
+
+@torch.no_grad()
+def prepare_serving_variables(model: Prismer
+                              ) -> Optional[Dict[str, torch.Tensor]]:
+    """One-time serving setup for the fused decode path, on the model's
+    device: the packed decoder weights in the compute dtype, the
+    compute-dtype (V, D) tied embedding and the fp32 LM bias
+    (roberta.pack_decode_collection). None when fused decode is not in use
+    there; beam_search then takes the per-layer path."""
+    device = next(model.parameters()).device
+    if not use_fused_decode(device):
+        return None
+    return pack_decode_collection(model.text_decoder, with_emb=True)
 
 
 @torch.no_grad()

@@ -1,15 +1,21 @@
 """RoBERTa-style causal decoder with per-layer cross-attention and adaptors,
-ported from prismer_tpu/models/roberta.py (the non-fused decode path).
+ported from prismer_tpu/models/roberta.py.
 
 Each decoder layer runs self-attn -> cross-attn -> adaptor -> MLP; a final
 layer without cross-attention finishes the stack; the LM head is dense ->
 gelu -> LayerNorm -> tied-embedding projection + bias, accumulated in fp32.
 
-Cache layout (the port's own): self K and V are both kept in natural layout
-(NL, N, H, T, Dh), N = B * beams, and each decode step writes its column in
-place. Cross K/V are projected once per sample, (NLc, B, H, L, Dh), and are
-shared by that sample's beams (never tiled, never reordered). The JAX fused
-decode path, its packed weights and int8 cross-KV are later work.
+Two cached decode paths, as in JAX (`set_fused_decode`):
+  * per layer (fused decode off): self K and V in natural layout
+    (NL, N, H, T, Dh), N = B * beams, each step writing its column in place;
+    cross K/V projected once per sample, (NLc, B, H, L, Dh), shared by the
+    sample's beams (never tiled, never reordered).
+  * fused (the default on CUDA): one `ops/fused_decode` call per step runs
+    every layer body. Self K/V (NL, T, N, D), so a step's column is one
+    contiguous slab, plus a second pair of buffers for the beam reorder the
+    step folds in; cross K/V natural and unpadded, (NLc, B, L, D); the
+    packed weights ride in the cache (`pack_decode_collection`).
+The int8 cross-KV variant of the JAX fused path is not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +33,43 @@ from prismer_tpu_torch.models.layers import (Adaptor, Dense, LayerNorm,
                                              split_heads)
 
 Cache = Dict[str, torch.Tensor]
+
+# Fused whole-step decode (ops/fused_decode.py): 'auto' is on for CUDA tensors
+# and off on the CPU, as the JAX package enables it only on its accelerator;
+# 'on' / 'off' force it. Read when a cache is built and at each step.
+_FUSED_DECODE = "auto"
+
+
+def set_fused_decode(mode: str) -> None:
+    """'on' | 'off' | 'auto'."""
+    global _FUSED_DECODE
+    if mode not in ("on", "off", "auto"):
+        raise ValueError(f"fused decode mode {mode!r}")
+    _FUSED_DECODE = mode
+
+
+def use_fused_decode(device: torch.device) -> bool:
+    """Whether decoding on `device` takes the fused path."""
+    if _FUSED_DECODE == "auto":
+        return torch.device(device).type == "cuda"
+    return _FUSED_DECODE == "on"
+
+
+def pack_decode_collection(decoder: "RobertaCausalDecoder",
+                           with_emb: bool = False) -> Dict[str, torch.Tensor]:
+    """The fused path's packed tensors: {"w_all", "b_all"} (layout in
+    ops/fused_decode.py), and with `with_emb` the compute-dtype (V, D) tied
+    embedding and the fp32 LM bias that ops/lm_topk reads ({"emb",
+    "lm_bias"}). Serving builds these once (prismer.
+    prepare_serving_variables); `init_cache` packs them itself otherwise."""
+    from prismer_tpu_torch.ops.fused_decode import pack_decode_weights
+    w_all, b_all = pack_decode_weights(decoder, decoder.dtype)
+    out = {"w_all": w_all, "b_all": b_all}
+    if with_emb:
+        out["emb"] = decoder.embeddings.word_embeddings.detach().to(
+            decoder.dtype).contiguous()
+        out["lm_bias"] = decoder.lm_head.bias.detach().float().contiguous()
+    return out
 
 
 def create_position_ids(input_ids: torch.Tensor, attention_mask: torch.Tensor,
@@ -170,9 +213,6 @@ class DecoderLayer(nn.Module):
             hidden = self.adaptor(self.cross_out(h, hidden))
         return self.mlp(hidden)
 
-    def project_cross_kv(self, encoder_hidden_states: torch.Tensor):
-        return self.cross_attn.project_kv(encoder_hidden_states)
-
 
 class Embeddings(nn.Module):
     """word + position + token-type embeddings (fp32 sum), cast, LN."""
@@ -256,47 +296,87 @@ class RobertaCausalDecoder(nn.Module):
     def init_cache(self, input_ids: torch.Tensor,
                    attention_mask: torch.Tensor,
                    encoder_hidden_states: torch.Tensor, max_len: int,
-                   beams: int = 1) -> Tuple[torch.Tensor, Cache]:
+                   beams: int = 1, return_h: bool = False,
+                   packed: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, Cache]:
         """Prefill the right-padded prompt. Returns (logits at the last
-        prompt column (N, V) fp32, cache). Pass the untiled encoder states
-        (B, L, D) with beam-tiled ids/mask (B*beams rows)."""
+        prompt column (N, V) fp32, cache); with return_h the LM-head
+        features (N, D) there instead (the ops/lm_topk path). Pass the
+        untiled encoder states (B, L, D) with beam-tiled ids/mask (B*beams
+        rows). On the fused path the cache carries `packed` (from
+        `pack_decode_collection`), or packs the weights itself."""
         c = self.cfg
         n, p = input_ids.shape
+        fused = use_fused_decode(input_ids.device)
         pos = create_position_ids(input_ids, attention_mask, c.pad_token_id)
         hidden = self.embeddings(input_ids, pos)
         enc = encoder_hidden_states.to(self.dtype)
-        h, dh = c.num_attention_heads, c.head_dim
+        h, dh, d = c.num_attention_heads, c.head_dim, c.hidden_size
         nl = c.num_hidden_layers + 1
-        self_k = torch.zeros((nl, n, h, max_len, dh), dtype=self.dtype,
-                             device=hidden.device)
+        if fused:
+            self_k = torch.zeros((nl, max_len, n, d), dtype=self.dtype,
+                                 device=hidden.device)
+        else:
+            self_k = torch.zeros((nl, n, h, max_len, dh), dtype=self.dtype,
+                                 device=hidden.device)
         self_v = torch.zeros_like(self_k)
         cross_k, cross_v = [], []
-        for i, layer in enumerate(self.cross_layers()):
-            ck, cv = layer.project_cross_kv(enc)
-            cross_k.append(ck)
-            cross_v.append(cv)
+        for i, layer in enumerate(self.cross_layers() + [self.output_layer]):
+            ck = cv = None
+            if layer.with_cross:
+                ck_nat = layer.cross_attn.key(enc)            # (B, L, D)
+                cv_nat = layer.cross_attn.value(enc)
+                ck, cv = split_heads(ck_nat, h), split_heads(cv_nat, h)
+                # the fused cache keeps the natural layout, the per-layer
+                # one the head-split (B, H, L, Dh)
+                cross_k.append(ck_nat if fused else ck)
+                cross_v.append(cv_nat if fused else cv)
             hidden, k, v = layer.prefill(hidden, attention_mask, ck, cv, beams)
-            self_k[i, :, :, :p] = k
-            self_v[i, :, :, :p] = v
-        hidden, k, v = self.output_layer.prefill(hidden, attention_mask,
-                                                 None, None)
-        self_k[nl - 1, :, :, :p] = k
-        self_v[nl - 1, :, :, :p] = v
-        logits = self.lm_head(hidden[:, -1:, :],
-                              self.embeddings.word_embeddings)[:, 0, :]
-        cache = {"self_k": self_k, "self_v": self_v,
-                 "cross_k": torch.stack(cross_k),
-                 "cross_v": torch.stack(cross_v)}
-        return logits, cache
+            if fused:  # (N, H, P, Dh) -> (P, N, D)
+                self_k[i, :p] = k.permute(2, 0, 1, 3).reshape(p, n, d)
+                self_v[i, :p] = v.permute(2, 0, 1, 3).reshape(p, n, d)
+            else:
+                self_k[i, :, :, :p] = k
+                self_v[i, :, :, :p] = v
+        last = hidden[:, -1:, :]
+        if return_h:
+            out = self.lm_head.features(last)[:, 0, :]
+        else:
+            out = self.lm_head(last, self.embeddings.word_embeddings)[:, 0, :]
+        if not fused:
+            return out, {"self_k": self_k, "self_v": self_v,
+                         "cross_k": torch.stack(cross_k),
+                         "cross_v": torch.stack(cross_v)}
+        if packed is None:
+            packed = pack_decode_collection(self)
+        return out, {"self_k_tn": self_k, "self_v_tn": self_v,
+                     "self_k_spare": torch.empty_like(self_k),
+                     "self_v_spare": torch.empty_like(self_v),
+                     "cross_k": torch.stack(cross_k),
+                     "cross_v": torch.stack(cross_v),
+                     "w_all": packed["w_all"], "b_all": packed["b_all"]}
 
     def decode_step(self, token_ids: torch.Tensor, index: int,
                     position_ids: torch.Tensor, key_mask: torch.Tensor,
-                    cache: Cache, beams: int = 1
-                    ) -> Tuple[torch.Tensor, Cache]:
+                    cache: Cache, beams: int = 1,
+                    cross_len: Optional[int] = None,
+                    perm: Optional[torch.Tensor] = None,
+                    return_h: bool = False) -> Tuple[torch.Tensor, Cache]:
         """One decode step; updates the self caches IN PLACE at column
         `index`. token_ids/position_ids (N,); key_mask (N, T) {0,1} validity
         of every cache column after this token is written. Returns
-        (next-token logits (N, V) fp32, cache)."""
+        (next-token logits (N, V) fp32, cache), or with return_h the
+        LM-head features (N, D).
+
+        On the fused path (a cache from a fused `init_cache`), perm (N,)
+        int32 folds the beam reorder of the self caches into the step, and
+        cross_len, when given, must equal the cached encoder length."""
+        if "w_all" in cache:
+            return self._fused_decode_step(token_ids, index, position_ids,
+                                           key_mask, cache, cross_len, perm,
+                                           return_h)
+        if perm is not None or return_h:
+            raise ValueError("perm and return_h need the fused decode path")
         hidden = self.embeddings(token_ids[:, None], position_ids[:, None])
         key_bias = padding_mask_bias(key_mask)
         self_k, self_v = cache["self_k"], cache["self_v"]
@@ -311,4 +391,38 @@ class RobertaCausalDecoder(nn.Module):
                 cache["cross_k"][i] if cross else None,
                 cache["cross_v"][i] if cross else None, beams)
         logits = self.lm_head(hidden, self.embeddings.word_embeddings)
+        return logits[:, 0, :], cache
+
+    def _fused_decode_step(self, token_ids: torch.Tensor, index: int,
+                           position_ids: torch.Tensor, key_mask: torch.Tensor,
+                           cache: Cache, cross_len: Optional[int],
+                           perm: Optional[torch.Tensor], return_h: bool
+                           ) -> Tuple[torch.Tensor, Cache]:
+        """Every layer body in one ops/fused_decode call; the embeddings and
+        the LM head stay outside. With perm the step reads the current
+        caches and writes the reordered ones into the spare pair, which
+        becomes the current pair."""
+        from prismer_tpu_torch.ops.fused_decode import fused_decode_step
+        c = self.cfg
+        if cross_len is not None and cross_len != cache["cross_k"].shape[2]:
+            raise ValueError(f"cross_len {cross_len} != cached "
+                             f"{cache['cross_k'].shape[2]}")
+        hidden = self.embeddings(token_ids[:, None],
+                                 position_ids[:, None])[:, 0, :]
+        spare = (None, None) if perm is None else (cache["self_k_spare"],
+                                                   cache["self_v_spare"])
+        hidden, _, _, self_k, self_v = fused_decode_step(
+            hidden, cache["w_all"], cache["b_all"], cache["self_k_tn"],
+            cache["self_v_tn"], key_mask, cache["cross_k"], cache["cross_v"],
+            index, perm, *spare, heads=c.num_attention_heads,
+            eps=c.layer_norm_eps)
+        new = dict(cache, self_k_tn=self_k, self_v_tn=self_v)
+        if perm is not None:
+            new["self_k_spare"] = cache["self_k_tn"]
+            new["self_v_spare"] = cache["self_v_tn"]
+        cache = new
+        if return_h:
+            return self.lm_head.features(hidden[:, None, :])[:, 0, :], cache
+        logits = self.lm_head(hidden[:, None, :],
+                              self.embeddings.word_embeddings)
         return logits[:, 0, :], cache

@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels (plain C interface, ctypes).
 
 Every `*.cu` file under `prismer_tpu_torch/csrc/` is compiled by `nvcc` for
-Hopper (`sm_90a`) into one shared library under `build/kernels/` at the repo
-root, at first use. The file name carries a hash of the sources and flags, so
-an edited source rebuilds and a stale library is never loaded. Nothing here
+Hopper (`sm_90a`), one `nvcc` process per source, all started together, and
+the objects are linked into one shared library under `build/kernels/` at the
+repo root, at first use. The file name carries a hash of the sources
+(headers included) and flags, so an edited source rebuilds and a stale
+library is never loaded. Nothing here
 runs at import time: the CPU tests import every module of the package, and
 only a kernel wrapper handed a CUDA tensor reaches this code.
 """
@@ -22,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -56,13 +58,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                          f"\n{stdout}\n{stderr}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}")
+    if not errors:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            errors.append(f"nvcc link failed ({res.returncode}):\n"
+                          f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if errors:
+        raise RuntimeError("\n".join(errors))
     os.replace(tmp, out)
     return out
 
@@ -83,6 +103,11 @@ def kernels() -> ctypes.CDLL:
     lib.prismer_beam_update.argtypes = (
         [_P] * 13 + [_I] * 4 + [_F, _I, _I, _P])
     lib.prismer_beam_update.restype = _I
+    lib.prismer_fused_decode_step.argtypes = (
+        [_P] * 15 + [_I] * 11 + [_F, _F, _P])
+    lib.prismer_fused_decode_step.restype = _I
+    lib.prismer_lm_topk.argtypes = [_P] * 8 + [_I] * 9 + [_P]
+    lib.prismer_lm_topk.restype = _I
     return lib
 
 

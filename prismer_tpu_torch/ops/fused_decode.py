@@ -1,0 +1,315 @@
+"""Fused decode step: the CUDA kernel's wrapper, the weight packing and the
+plain version.
+
+Port of prismer_tpu/ops/fused_decode.py (`pack_decode_weights`,
+`fused_decode_step` with its `flat_beam` fold). The kernel is
+`csrc/fused_decode.cu`; its header note says what it replaces, what bounds
+it on the H100 and how it is built. `fused_decode_step` launches the kernel
+for CUDA tensors and computes `fused_decode_step_reference` for tensors on
+the CPU. Launches are counted in `fused_decode_step.launches` (one per step).
+
+Layouts (the port's own):
+  * hidden (N, D), N = B * beams rows;
+  * self caches (NL, T, N, D): a step's column is one contiguous (N, D) slab;
+  * cross K/V natural and unpadded, (NLc, B, L, D), shared by a sample's
+    beams; NL = NLc + 1 (the output layer has no cross-attention);
+  * weights packed into one flat tensor in the compute dtype, per layer and
+    in layer order, each matrix in nn.Linear (out, in) layout, and biases
+    plus LayerNorm parameters into one flat fp32 tensor (`layer_layout`).
+The TPU layout's head/tail weight split, chunked W2, zero cross slots of the
+output layer, 8-row beam padding and lane-padded cross K^T are not carried
+over. The int8 cross-KV variant (`PRISMER_KV_QUANT`, off by default in JAX)
+is not ported.
+
+Numerics (the JAX kernel's spec, the XLA cached path): dense = fp32
+accumulation rounded to the compute dtype, plus the bias in that dtype; LN in
+fp32 on x + residual; fp32 softmax, normalised, rounded before the PV
+product; attention scores and PV sums exact fp32 from compute-dtype
+operands; exact-erf GELU and squared ReLU in fp32, rounded.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e9  # attention mask fill (JAX fused_decode.py:106)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def layer_layout(d: int, f: int, with_cross: bool):
+    """One layer's packed layout: ({name: (offset, (rows, cols))} of the
+    weights, {name: (offset, size)} of the fp32 biases and LN parameters
+    (an LN holds 2*d values, scale then bias), weight size, bias size)."""
+    shapes = [("qkv", (3 * d, d)), ("self_out", (d, d))]
+    sizes = [("qkv", 3 * d), ("self_out", d), ("ln1", 2 * d)]
+    if with_cross:
+        shapes += [("cross_q", (d, d)), ("cross_out", (d, d)),
+                   ("ad_down", (d, d)), ("ad_up", (d, d))]
+        sizes += [("cross_q", d), ("cross_out", d), ("ln2", 2 * d),
+                  ("ad_down", d), ("ad_up", d), ("ln_ad", 2 * d)]
+    shapes += [("mlp_in", (f, d)), ("mlp_out", (d, f))]
+    sizes += [("mlp_in", f), ("mlp_out", d), ("ln3", 2 * d)]
+    w, off = {}, 0
+    for name, shape in shapes:
+        w[name] = (off, shape)
+        off += shape[0] * shape[1]
+    b, boff = {}, 0
+    for name, size in sizes:
+        b[name] = (boff, size)
+        boff += size
+    return w, b, off, boff
+
+
+def packed_sizes(d: int, f: int, nlc: int) -> Tuple[int, int]:
+    """(weight elements, bias elements) for nlc cross layers + the output
+    layer."""
+    _, _, wc, bc = layer_layout(d, f, True)
+    _, _, wo, bo = layer_layout(d, f, False)
+    return nlc * wc + wo, nlc * bc + bo
+
+
+def layer_views(w_all: torch.Tensor, b_all: torch.Tensor, d: int, f: int,
+                nlc: int) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer views into the packed tensors: "w_<name>" (rows, cols) and
+    "b_<name>" (size,)."""
+    out, woff, boff = [], 0, 0
+    for i in range(nlc + 1):
+        wl, bl, wsize, bsize = layer_layout(d, f, i < nlc)
+        views = {}
+        for name, (off, (r, c)) in wl.items():
+            views["w_" + name] = w_all[woff + off:woff + off + r * c].view(
+                r, c)
+        for name, (off, size) in bl.items():
+            views["b_" + name] = b_all[boff + off:boff + off + size]
+        out.append(views)
+        woff += wsize
+        boff += bsize
+    return out
+
+
+@torch.no_grad()
+def pack_decode_weights(decoder, dtype: torch.dtype
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack a port RobertaCausalDecoder's layer weights: (w_all flat in
+    `dtype`, b_all flat fp32), on the decoder's device."""
+    cfg = decoder.cfg
+    layers = decoder.cross_layers() + [decoder.output_layer]
+    ws, bs = [], []
+    for layer in layers:
+        sa, so, mlp = layer.self_attn, layer.self_out, layer.mlp
+        mats = [torch.cat([sa.query.weight, sa.key.weight, sa.value.weight]),
+                so.dense.weight]
+        vecs = [sa.query.bias, sa.key.bias, sa.value.bias, so.dense.bias,
+                so.ln.weight, so.ln.bias]
+        if layer.with_cross:
+            ca, co, ad = layer.cross_attn, layer.cross_out, layer.adaptor
+            mats += [ca.query.weight, co.dense.weight, ad.down_proj.weight,
+                     ad.up_proj.weight]
+            vecs += [ca.query.bias, co.dense.bias, co.ln.weight, co.ln.bias,
+                     ad.down_proj.bias, ad.up_proj.bias,
+                     ad.adaptor_ln.weight, ad.adaptor_ln.bias]
+        mats += [mlp.intermediate.weight, mlp.out.dense.weight]
+        vecs += [mlp.intermediate.bias, mlp.out.dense.bias, mlp.out.ln.weight,
+                 mlp.out.ln.bias]
+        ws += [m.to(dtype).reshape(-1) for m in mats]
+        bs += [v.float().reshape(-1) for v in vecs]
+    w_all, b_all = torch.cat(ws), torch.cat(bs)
+    want = packed_sizes(cfg.hidden_size, cfg.intermediate_size,
+                        cfg.num_hidden_layers)
+    assert (w_all.numel(), b_all.numel()) == want, (w_all.shape, want)
+    return w_all, b_all
+
+
+def _dims(hidden0, w_all, b_all, self_k, cross_k, heads):
+    n, d = hidden0.shape
+    nl, t = self_k.shape[0], self_k.shape[1]
+    nlc, b, l_enc = cross_k.shape[0], cross_k.shape[1], cross_k.shape[2]
+    # w_all = nlc (8 d^2 + 2 f d) + 4 d^2 + 2 f d
+    f = (w_all.numel() - (8 * nlc + 4) * d * d) // (2 * d * (nlc + 1))
+    if (nl != nlc + 1 or n % b or d % heads
+            or packed_sizes(d, f, nlc) != (w_all.numel(), b_all.numel())
+            or tuple(self_k.shape) != (nl, t, n, d)
+            or tuple(cross_k.shape) != (nlc, b, l_enc, d)):
+        raise ValueError(
+            f"fused_decode_step: hidden {tuple(hidden0.shape)} w_all "
+            f"{w_all.numel()} b_all {b_all.numel()} self_k "
+            f"{tuple(self_k.shape)} cross_k {tuple(cross_k.shape)} heads "
+            f"{heads}")
+    return n, d, f, nl, nlc, t, b, l_enc
+
+
+def _dense(x, w, b):
+    """flax Dense(dtype): fp32 sum rounded to the compute dtype, + bias in
+    that dtype. w is (out, in)."""
+    return (x.float() @ w.float().t()).to(x.dtype) + b.to(x.dtype)
+
+
+def _ln(o, res, sb, eps):
+    """fp32 LayerNorm of o + res (two-pass statistics), rounded."""
+    d = o.shape[-1]
+    x = o.float() + res.float()
+    mean = x.mean(dim=-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps) * sb[:d] + sb[d:]
+    return y.to(o.dtype)
+
+
+@torch.no_grad()
+def fused_decode_step_reference(
+        hidden0: torch.Tensor, w_all: torch.Tensor, b_all: torch.Tensor,
+        self_k: torch.Tensor, self_v: torch.Tensor, key_mask: torch.Tensor,
+        cross_k: torch.Tensor, cross_v: torch.Tensor, index: int,
+        flat_beam: Optional[torch.Tensor] = None,
+        out_k: Optional[torch.Tensor] = None,
+        out_v: Optional[torch.Tensor] = None, *, heads: int,
+        eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
+    """The plain version of `fused_decode_step` (same arguments, same
+    results, same in-place writes)."""
+    n, d, f, nl, nlc, t, b, l_enc = _dims(hidden0, w_all, b_all, self_k,
+                                          cross_k, heads)
+    dtype = hidden0.dtype
+    dh = d // heads
+    beams = n // b
+    scale = 1.0 / math.sqrt(dh)
+    if flat_beam is None:
+        out_k, out_v = self_k, self_v
+    elif out_k is None:
+        out_k, out_v = torch.empty_like(self_k), torch.empty_like(self_v)
+    bias = ((1.0 - key_mask.float()) * NEG_INF)[:, None, :]      # (N, 1, T)
+    k_new = torch.empty((nl, n, d), dtype=dtype, device=hidden0.device)
+    v_new = torch.empty_like(k_new)
+    x = hidden0
+    for i, p in enumerate(layer_views(w_all, b_all, d, f, nlc)):
+        qkv = _dense(x, p["w_qkv"], p["b_qkv"])
+        q, k_new[i], v_new[i] = qkv[:, :d], qkv[:, d:2 * d], qkv[:, 2 * d:]
+        if flat_beam is not None:
+            # permute into the second buffer, then write the fresh column
+            out_k[i] = self_k[i][:, flat_beam.long()]
+            out_v[i] = self_v[i][:, flat_beam.long()]
+        out_k[i, index] = k_new[i]
+        out_v[i, index] = v_new[i]
+        ck = out_k[i].float().view(t, n, heads, dh)
+        cv = out_v[i].float().view(t, n, heads, dh)
+        s = torch.einsum("nhd,tnhd->nht", q.float().view(n, heads, dh),
+                         ck) * scale + bias
+        pr = torch.softmax(s, dim=-1).to(dtype)
+        att = torch.einsum("nht,tnhd->nhd", pr.float(), cv).to(dtype)
+        o = _dense(att.reshape(n, d), p["w_self_out"], p["b_self_out"])
+        x = _ln(o, x, p["b_ln1"], eps)
+        if i < nlc:
+            qc = _dense(x, p["w_cross_q"], p["b_cross_q"]).float()
+            qc = qc.view(b, beams, heads, dh)
+            kc = cross_k[i].float().view(b, l_enc, heads, dh)
+            vc = cross_v[i].float().view(b, l_enc, heads, dh)
+            s = torch.einsum("bkhd,blhd->bkhl", qc, kc) * scale
+            pr = torch.softmax(s, dim=-1).to(dtype)
+            co = torch.einsum("bkhl,blhd->bkhd", pr.float(), vc).to(dtype)
+            o = _dense(co.reshape(n, d), p["w_cross_out"], p["b_cross_out"])
+            x = _ln(o, x, p["b_ln2"], eps)
+            a = _dense(x, p["w_ad_down"], p["b_ad_down"]).float().clamp_min(0)
+            u = _dense((a * a).to(dtype), p["w_ad_up"], p["b_ad_up"])
+            x = _ln(u, x, p["b_ln_ad"], eps)
+        h1 = F.gelu(_dense(x, p["w_mlp_in"], p["b_mlp_in"]).float())
+        h2 = _dense(h1.to(dtype), p["w_mlp_out"], p["b_mlp_out"])
+        x = _ln(h2, x, p["b_ln3"], eps)
+    return x, k_new, v_new, out_k, out_v
+
+
+def fused_decode_step(hidden0: torch.Tensor, w_all: torch.Tensor,
+                      b_all: torch.Tensor, self_k: torch.Tensor,
+                      self_v: torch.Tensor, key_mask: torch.Tensor,
+                      cross_k: torch.Tensor, cross_v: torch.Tensor,
+                      index: int, flat_beam: Optional[torch.Tensor] = None,
+                      out_k: Optional[torch.Tensor] = None,
+                      out_v: Optional[torch.Tensor] = None, *, heads: int,
+                      eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
+    """One whole decode step over all NL layers.
+
+    hidden0 (N, D) embeddings output in the compute dtype; w_all / b_all
+    from `pack_decode_weights`; self_k / self_v (NL, T, N, D); key_mask
+    (N, T) {0, 1}, the validity of every cache column once column `index`
+    holds this step's K/V; cross_k / cross_v (NLc, B, L, D).
+
+    Without flat_beam the column `index` of self_k / self_v is written in
+    place. With flat_beam (N,) int32, row n of each layer's caches is read
+    from row flat_beam[n] (the beam-search reorder) and the permuted caches,
+    column `index` included, are written to out_k / out_v (other buffers of
+    the same shape; allocated when not given).
+
+    Returns (hidden_out (N, D), k_new (NL, N, D), v_new (NL, N, D),
+    caches_k, caches_v), the caches being self_k / self_v or out_k / out_v.
+    """
+    n, d, f, nl, nlc, t, b, l_enc = _dims(hidden0, w_all, b_all, self_k,
+                                          cross_k, heads)
+    if not 0 <= index < t or tuple(key_mask.shape) != (n, t):
+        raise ValueError(f"fused_decode_step: index {index}, key_mask "
+                         f"{tuple(key_mask.shape)}, T {t}")
+    if flat_beam is not None:
+        if out_k is None:
+            out_k, out_v = torch.empty_like(self_k), torch.empty_like(self_v)
+        if out_k.data_ptr() == self_k.data_ptr() or \
+                out_v.data_ptr() == self_v.data_ptr():
+            raise ValueError("fused_decode_step: the reorder cannot run in "
+                             "place; out_k/out_v must be other buffers")
+    if not hidden0.is_cuda:
+        return fused_decode_step_reference(
+            hidden0, w_all, b_all, self_k, self_v, key_mask, cross_k,
+            cross_v, index, flat_beam, out_k, out_v, heads=heads, eps=eps)
+    from prismer_tpu_torch.ops import _build
+
+    dtype = hidden0.dtype
+    if dtype not in _DTYPE_CODES or d % 8 or (d // heads) % 8 or (
+            dtype == torch.bfloat16 and (d % 32 or f % 32)):
+        raise ValueError(f"fused_decode_step: kernel takes "
+                         f"{list(_DTYPE_CODES)} with D and the head width "
+                         f"multiples of 8, D and F of 32 in bf16; got {dtype},"
+                         f" D {d}, F {f}, {heads} heads")
+    if flat_beam is None:
+        out_k, out_v = self_k, self_v
+    key_mask = key_mask.to(torch.int32).contiguous()
+    want = [("hidden0", hidden0, dtype), ("w_all", w_all, dtype),
+            ("b_all", b_all, torch.float32), ("self_k", self_k, dtype),
+            ("self_v", self_v, dtype), ("out_k", out_k, dtype),
+            ("out_v", out_v, dtype), ("key_mask", key_mask, torch.int32),
+            ("cross_k", cross_k, dtype), ("cross_v", cross_v, dtype)]
+    if flat_beam is not None:
+        want.append(("flat_beam", flat_beam, torch.int32))
+    for name, x, dt in want:
+        if (not x.is_cuda or x.device != hidden0.device or x.dtype != dt
+                or not x.is_contiguous() or x.data_ptr() % 16):
+            raise ValueError(f"fused_decode_step: {name} is {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}; kernel takes "
+                             f"contiguous 16-byte aligned {dt} on "
+                             f"{hidden0.device}")
+    if tuple(out_k.shape) != tuple(self_k.shape) or \
+            tuple(out_v.shape) != tuple(self_k.shape) or \
+            tuple(self_v.shape) != tuple(self_k.shape) or \
+            tuple(cross_v.shape) != tuple(cross_k.shape) or \
+            (flat_beam is not None and tuple(flat_beam.shape) != (n,)):
+        raise ValueError("fused_decode_step: cache / flat_beam shapes")
+    dev = hidden0.device
+    hidden_out = torch.empty((n, d), dtype=dtype, device=dev)
+    k_new = torch.empty((nl, n, d), dtype=dtype, device=dev)
+    v_new = torch.empty_like(k_new)
+    work = torch.empty(n * (7 * d + max(d, f)), dtype=dtype, device=dev)
+    err = _build.kernels().prismer_fused_decode_step(
+        hidden0.data_ptr(), w_all.data_ptr(), b_all.data_ptr(),
+        self_k.data_ptr(), self_v.data_ptr(), out_k.data_ptr(),
+        out_v.data_ptr(),
+        None if flat_beam is None else flat_beam.data_ptr(),
+        key_mask.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(),
+        hidden_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        work.data_ptr(), n, b, d, heads, f, nl, nlc, t, l_enc, index,
+        _DTYPE_CODES[dtype], eps, 1.0 / math.sqrt(d // heads),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fused_decode_step")
+    fused_decode_step.launches += 1
+    return hidden_out, k_new, v_new, out_k, out_v
+
+
+fused_decode_step.launches = 0
+

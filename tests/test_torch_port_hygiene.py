@@ -45,6 +45,8 @@ def test_package_imports_without_jax_flax_yaml_regex_pil():
         "bad = [m for m in sys.modules if m.split('.')[0] == 'prismer_tpu']",
         "assert not bad, bad",
         "assert len(names) >= 14, names",
+        "assert {'prismer_tpu_torch.ops.fused_decode',",
+        "        'prismer_tpu_torch.ops.lm_topk'} <= set(names), names",
         "print(len(names))",
     ])
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -178,9 +180,81 @@ def test_smoke_run_turns_tf32_off():
     assert "torch.backends.cudnn.allow_tf32 = False" in src
 
 
+KERNEL_SOURCES = ("flash_attention.cu", "beam_update.cu", "fused_decode.cu",
+                  "lm_topk.cu", "common.cuh")
+
+
 def test_kernel_library_named_by_source_hash():
     path = _build.library_path()
     assert path.parent == ROOT / "build" / "kernels"
     assert path.name.startswith("libprismer_kernels_")
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "flash_attention.cu", "beam_update.cu"}
+        n for n in KERNEL_SOURCES if n.endswith(".cu")}
+    assert {p.name for p in _build.CSRC.iterdir()} == set(KERNEL_SOURCES)
+
+
+@pytest.mark.parametrize("name", KERNEL_SOURCES)
+def test_kernel_library_hash_covers_every_source(name, tmp_path, monkeypatch):
+    """Editing any kernel source or header renames the library, so a stale
+    build is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path()
+    with open(csrc / name, "a") as f:
+        f.write("\n// edited\n")
+    assert _build.library_path() != before
+
+
+def test_kernels_use_no_vendor_libraries():
+    """The port's kernels are its own: no source includes or links cuBLAS,
+    cuDNN or another vendor kernel library, and the build links none."""
+    banned = ("cublas", "cudnn", "cutlass/gemm", "cusparse", "nccl")
+    for src in _build.CSRC.iterdir():
+        text = src.read_text().lower()
+        for lib in banned:
+            assert lib not in text, (src.name, lib)
+    build_src = Path(_build.__file__).read_text().lower()
+    assert "-l" + "cublas" not in build_src and "cudnn" not in build_src
+    assert not any(f.startswith("-l") for f in _build.NVCC_FLAGS)
+
+
+def test_build_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):
+    """The build compiles every .cu in its own nvcc process (started
+    together), links the objects into the hash-named library and removes
+    them; a failing compile raises with nvcc's output."""
+    log = tmp_path / "calls.txt"
+    cuda = tmp_path / "cuda"
+    (cuda / "bin").mkdir(parents=True)
+    nvcc = cuda / "bin" / "nvcc"
+    nvcc.write_text("\n".join([
+        f"#!{sys.executable}",
+        "import sys",
+        f"open({str(log)!r}, 'a').write(' '.join(sys.argv[1:]) + '\\n')",
+        "args = sys.argv[1:]",
+        "if any('broken' in a for a in args):",
+        "    sys.exit('error: broken source')",
+        "open(args[args.index('-o') + 1], 'w').write('x')",
+    ]))
+    nvcc.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu", "common.cuh"):
+        (csrc / name).write_text("// " + name)
+    monkeypatch.setenv("CUDA_HOME", str(cuda))
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    lib = _build.build()
+    assert lib == _build.library_path() and lib.exists()
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in c]
+    assert len(compiles) == 2 and calls[-1].startswith("-shared")
+    assert all("arch=compute_90a,code=sm_90a" in c for c in compiles)
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [lib.name]
+    assert _build.build() == lib and len(log.read_text().splitlines()) == 3
+
+    (csrc / "broken.cu").write_text("// broken")
+    with pytest.raises(RuntimeError, match="broken source"):
+        _build.build()

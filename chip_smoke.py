@@ -3,24 +3,35 @@
     python3 chip_smoke.py [--profile]
 
 Builds the port's CUDA kernels from `prismer_tpu_torch/csrc/`, checks each
-against its plain PyTorch version at the shapes the captioning path gives it,
-checks the fp32 model on the card against the same model on the CPU and the
-fp32 fused decode path against the per-layer path, then serves captioning
-requests through `build_generate_fn` in bf16, fused decode on (the default on
-CUDA) and then off, and checks that the fused requests went through every
-kernel. Exits non-zero if any phase fails or if there is no CUDA device; the
-last line of standard output is a JSON object with the device.
+against its plain PyTorch version at the shapes the captioning and
+fine-tune paths give it, checks the fp32 model on the card against the same
+model on the CPU and the fp32 fused decode path against the per-layer path,
+then serves captioning requests through `build_generate_fn` in bf16, fused
+decode on (the default on CUDA) and then off, and checks that the fused
+requests went through every serving kernel. Then the caption fine-tune
+step: one fp32 train step on the card against the CPU, and ten bf16 AdamW
+steps through `build_train_step` that must lower the loss, move every
+trainable leaf, keep every frozen one and launch every training kernel,
+timed at batch 4 and 16. Exits non-zero if any phase fails or if there is
+no CUDA device; the last line of standard output is a JSON object with the
+device.
 
-The slice: Prismer-BASE, all six experts, 480 px, bf16, beam 3, max length
-20, min length 8, 4-token prompt, batch 8 and 5. Weights are random, drawn
-from a fixed seed. `--profile` adds a torch.profiler view and an
-encode / beam-search split of one batch-8 request on each decode path.
+The slice: Prismer-BASE, all six experts, 480 px, bf16; serving with beam
+3, max length 20, min length 8, 4-token prompt, batch 8 and 5; fine-tuning
+with freeze_vision, AdamW (wd 0.05) over fp32 masters, ragged captions of
+at most 30 tokens with the 4-token prompt masked, batch 4 (and 16 for
+time). Weights are random, drawn from a fixed seed. `--profile` adds a
+torch.profiler view and an encode / beam-search split of one batch-8
+request on each decode path, and the same for one train step with its
+encoder / decoder / optimizer split.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -52,6 +63,12 @@ TOL_TOPK = 2e-5
 # fp32 beam scores, fused vs per-layer path: sums of ~16 log-probs taken in
 # another order
 TOL_SCORES = 1e-3
+# flash backward and fused CE, kernel vs plain on the same inputs: fp32 max
+# abs over the reference's largest magnitude (sums in another order); bf16
+# rel L2 (the kernels round p and ds to bf16 where JAX does, but the sums'
+# order flips some of those roundings)
+TOL_BWD_FP32 = 1e-4
+TOL_BWD_BF16 = 2e-2
 
 
 def log(msg: str) -> None:
@@ -409,6 +426,162 @@ def check_lm_topk(results):
                     f"{entry['plain_ms']:.4f} ms")
 
 
+def _bwd_errors(got, want, fp32: bool):
+    """fp32: max abs over the reference's largest magnitude; bf16: rel L2."""
+    g, w = got.double(), want.double()
+    if fp32:
+        return ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+    return ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+
+
+# the train step's attention shapes at batch 4: (name, packed, B, Lq, Lk, H,
+# Dh, key mask, causal)
+TRAIN_ATTENTION = (
+    ("trunk", True, 4, 964, 964, 12, 64, False, False),
+    ("resampler", True, 4, 64, 1240, 8, 96, False, False),
+    ("decoder self", False, 4, 30, 30, 12, 64, True, True),
+    ("decoder cross", False, 4, 30, 964, 12, 64, False, False),
+)
+
+
+def check_flash_backward(results):
+    """Kernels 6 and 7 against their plain versions at the train step's
+    shapes, fp32 and bf16; two launches on the same inputs bit-identical."""
+    import torch
+    from prismer_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    dq_e, dkv_e = (results["flash_attention_bwd_dq"],
+                   results["flash_attention_bwd_dkv"])
+    for name, packed, b, lq, lk, h, dh, masked, causal in TRAIN_ATTENTION:
+        w = h * dh
+        if packed:
+            shapes = ((b, lq, w), (b, lk, w), (b, lk, w))
+        else:
+            shapes = ((b, h, lq, dh), (b, h, lk, dh), (b, h, lk, dh))
+        base = [torch.randn(*s, generator=gen, device="cuda") for s in shapes]
+        dout32 = torch.randn(*shapes[0], generator=gen, device="cuda")
+        mask = None
+        if masked:   # right-padded captions, one sample with no valid key
+            lens = torch.tensor([lk, lk - 7, 5, 0], device="cuda")
+            mask = (torch.arange(lk, device="cuda")[None] < lens[:, None]).to(
+                torch.int32)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = (t.to(dtype) for t in (*base, dout32))
+            if packed:
+                o, lse = fa.flash_attention_packed_lse(q, k, v, h)
+                delta = fa.attention_delta(
+                    dout.view(b, lq, h, dh), o.view(b, lq, h, dh)
+                ).transpose(1, 2).contiguous()
+                views = [fa._heads(t, h) for t in (q, k, v, dout)]
+            else:
+                o, lse = fa.flash_attention_lse(q, k, v, mask, causal)
+                delta = fa.attention_delta(dout, o)
+                views = [q, k, v, dout]
+            args = (*views, lse, delta, mask, causal)
+
+            def kernel_dq():
+                return fa.flash_attention_bwd_dq(*args)
+
+            def kernel_dkv():
+                return fa.flash_attention_bwd_dkv(*args)
+
+            got = (kernel_dq(), *kernel_dkv())
+            again = (kernel_dq(), *kernel_dkv())
+            want = (fa.bwd_dq_reference(*args), *fa.bwd_dkv_reference(*args))
+            torch.cuda.synchronize()
+            fp32 = dtype == torch.float32
+            errs = [_bwd_errors(g, r, fp32) for g, r in zip(got, want)]
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+            repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+            tol = TOL_BWD_FP32 if fp32 else TOL_BWD_BF16
+            ms_dq, ms_dkv = cuda_ms(kernel_dq, iters=10), cuda_ms(kernel_dkv,
+                                                                  iters=10)
+            plain_dq = cuda_ms(lambda: fa.bwd_dq_reference(*args), iters=5)
+            plain_dkv = cuda_ms(lambda: fa.bwd_dkv_reference(*args), iters=5)
+            log(f"  flash backward {name} B={b} Lq={lq} Lk={lk} H={h} "
+                f"Dh={dh}{' masked causal' if causal else ''} "
+                f"{str(dtype)[6:]}: dq/dk/dv err "
+                f"{'/'.join(f'{e:.3g}' for e in errs)} ("
+                f"{'max abs / max|ref|' if fp32 else 'rel L2'} tol {tol}), "
+                f"finite {finite}, repeat bit-identical {repeat}; dq kernel "
+                f"{ms_dq:.4f} ms plain {plain_dq:.4f} ms, dk/dv kernel "
+                f"{ms_dkv:.4f} ms plain {plain_dkv:.4f} ms")
+            expect(max(errs) <= tol and finite and repeat,
+                   f"flash backward {name} {dtype} out of tolerance")
+            if fp32:
+                dq_e["max_abs_err"] = max(dq_e["max_abs_err"], errs[0])
+                dkv_e["max_abs_err"] = max(dkv_e["max_abs_err"], *errs[1:])
+            elif name == "trunk":
+                dq_e["ms"], dq_e["plain_ms"] = ms_dq, plain_dq
+                dkv_e["ms"], dkv_e["plain_ms"] = ms_dkv, plain_dkv
+            del got, again, want
+        torch.cuda.empty_cache()
+
+
+def check_fused_ce(results):
+    """Kernels 8 and 9 against their plain versions at the caption
+    fine-tune's CE shape (N = 4 x 29 = 116), at batch 16's (N = 464) and at
+    a small N; fp32 and bf16; repeat launches bit-identical."""
+    import torch
+    from prismer_tpu_torch.ops import fused_ce as fc
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    st_e, gr_e = results["ce_stats"], results["ce_grads"]
+    v, d = 50265, 768
+    emb32 = torch.randn(v, d, generator=gen, device="cuda") * 0.02
+    bias = torch.randn(v, generator=gen, device="cuda") * 0.1
+    for n in (116, 464, 37):
+        h32 = torch.randn(n, d, generator=gen, device="cuda")
+        lab = torch.randint(0, v, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        lab[:3] = torch.tensor([0, v - 1, v - 2], dtype=torch.int32)
+        valid = (torch.rand(n, generator=gen, device="cuda") > 0.2).float()
+        gv = (valid * 0.25).contiguous()
+        for dtype in (torch.float32, torch.bfloat16):
+            h, emb = h32.to(dtype), emb32.to(dtype)
+            fp32 = dtype == torch.float32
+            tol = TOL_BWD_FP32 if fp32 else TOL_BWD_BF16
+            stats = fc.ce_stats(h, emb, bias, lab)
+            stats2 = fc.ce_stats(h, emb, bias, lab)
+            r_stats = fc.ce_stats_reference(h, emb, bias, lab)
+            lse = stats[2]
+            grads = fc.ce_grads(h, emb, bias, lab, gv, lse, 0.1)
+            grads2 = fc.ce_grads(h, emb, bias, lab, gv, lse, 0.1)
+            r_grads = fc.ce_grads_reference(h, emb, bias, lab, gv, lse, 0.1)
+            torch.cuda.synchronize()
+            e_st = [_bwd_errors(g, r, fp32) for g, r in zip(stats, r_stats)]
+            e_gr = [_bwd_errors(g, r, fp32) for g, r in zip(grads, r_grads)]
+            repeat = (all(torch.equal(a, b) for a, b in zip(stats, stats2))
+                      and all(torch.equal(a, b)
+                              for a, b in zip(grads, grads2)))
+            finite = all(bool(torch.isfinite(t.float()).all())
+                         for t in (*stats, *grads))
+            ms_st = cuda_ms(lambda: fc.ce_stats(h, emb, bias, lab), iters=10)
+            ms_gr = cuda_ms(lambda: fc.ce_grads(h, emb, bias, lab, gv, lse,
+                                                0.1), iters=10)
+            plain_st = cuda_ms(lambda: fc.ce_stats_reference(h, emb, bias,
+                                                             lab), iters=5)
+            plain_gr = cuda_ms(lambda: fc.ce_grads_reference(
+                h, emb, bias, lab, gv, lse, 0.1), iters=5)
+            log(f"  fused CE N={n} V={v} D={d} {str(dtype)[6:]}: xlab/sumx/lse"
+                f" err {'/'.join(f'{e:.3g}' for e in e_st)}, dh/demb/dbias "
+                f"err {'/'.join(f'{e:.3g}' for e in e_gr)} ("
+                f"{'max abs / max|ref|' if fp32 else 'rel L2'} tol {tol}), "
+                f"finite {finite}, repeat bit-identical {repeat}; stats "
+                f"kernel {ms_st:.4f} ms plain {plain_st:.4f} ms, grads kernel "
+                f"{ms_gr:.4f} ms plain {plain_gr:.4f} ms")
+            expect(max(e_st + e_gr) <= tol and repeat and finite,
+                   f"fused CE N={n} {dtype} out of tolerance")
+            if fp32:
+                st_e["max_abs_err"] = max(st_e["max_abs_err"], *e_st)
+                gr_e["max_abs_err"] = max(gr_e["max_abs_err"], *e_gr)
+            elif n == 116:
+                st_e["ms"], st_e["plain_ms"] = ms_st, plain_st
+                gr_e["ms"], gr_e["plain_ms"] = ms_gr, plain_gr
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the model
 # ---------------------------------------------------------------------------
@@ -599,8 +772,10 @@ def check_requests(reqs, outs, vocab):
 
 
 def profile_request(generate, req, label: str, card: str) -> None:
-    """torch.profiler over one request: wall ms, device-busy ms (the sum of
-    device op times; one stream, so they do not overlap) and device ops."""
+    """torch.profiler over one request (or train step): wall ms,
+    device-busy ms (the sum of device op times, user annotations such as
+    the optimizer's range left out; one stream, so they do not overlap)
+    and device ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -612,7 +787,8 @@ def profile_request(generate, req, label: str, card: str) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     ops = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
     by_name = {}
     for e in ops:
@@ -620,8 +796,8 @@ def profile_request(generate, req, label: str, card: str) -> None:
         by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     log(f"  profile {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms "
-        f"(idle share {1 - busy / wall:.2f}), {len(ops)} device ops per "
-        f"request ({card})")
+        f"(idle share {1 - busy / wall:.2f}), {len(ops)} device ops "
+        f"({card})")
     for name, (t, c) in top:
         log(f"    {t:8.2f} ms {c:6d}x {name[:90]}")
 
@@ -671,20 +847,21 @@ def phase_serve(results, card: str, profile: bool):
     torch.cuda.synchronize()
     reqs = [requests[0]] + requests
     outs, times = timed_requests(generate, reqs)
-    for name, fn in wrap.items():
-        results[name]["launches"] = fn.launches
+    for name in SERVE_KERNELS:
+        results[name]["launches"] = wrap[name].launches
 
     check_requests(reqs, outs, cfg.decoder.vocab_size)
     expect(torch.equal(outs[0], outs[1]), "same request gave different ids")
-    for name, entry in results.items():
-        expect(entry["launches"] > 0, f"{name} never launched on the path")
+    for name in SERVE_KERNELS:
+        expect(results[name]["launches"] > 0,
+               f"{name} never launched on the path")
     b8 = times[1:4]
     ms8 = sum(b8) / len(b8)
     log(f"  4 requests (+1 repeat, +2 warm-up) of (8, 8, 8, 5) images: "
         f"shapes, prompts, id range and determinism ok; sample ids "
         f"{outs[1][0].tolist()}")
     log(f"  launches on the path: " + ", ".join(
-        f"{n}={e['launches']}" for n, e in results.items()))
+        f"{n}={results[n]['launches']}" for n in SERVE_KERNELS))
     log(f"  fused decode, batch 8: {ms8:.1f} ms/request "
         f"({' '.join(f'{t:.1f}' for t in b8)}), {8000.0 / ms8:.1f} images/s; "
         f"batch 5: {times[4]:.1f} ms/request, {5000.0 / times[4]:.1f} "
@@ -733,6 +910,262 @@ def phase_serve_per_layer(results, card: str, profile: bool):
 
 
 # ---------------------------------------------------------------------------
+# phases 7 and 8: the caption fine-tune step
+# ---------------------------------------------------------------------------
+
+# the train phase's lr: the slice's 5e-5, raised to 1e-4 for this check only
+# so that ten AdamW steps on one batch show the loss falling
+TRAIN_LR = 1e-4
+TRAIN_STEPS = 10
+TRAIN_WD = 0.05
+PROMPT_LEN = 4
+# one fp32 train step, card (kernels) vs CPU (plain versions): loss rel,
+# gradient rel L2 per trainable leaf, BatchNorm running statistics. The
+# label stems' Conv_i / bn_i feed ReLUs: where two fp32 forwards that agree
+# to ~2e-6 put a pre-activation on either side of zero, ReLU's derivative
+# flips for that element, and a handful of the ~5 M elements at 224 px
+# moves those leaves' gradients by up to a few 1e-3 (measured on an H100
+# 80GB HBM3 at 700 W: 4e-4 to 3e-3 with cuDNN on or off, stem outputs
+# 2e-6 apart)
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_GRAD = 1e-3
+TOL_TRAIN_GRAD_RELU = 1e-2
+TOL_TRAIN_STATS = 1e-5
+RELU_FED = re.compile(r"\.conv1_\w+\.(Conv|bn)_\d\.")
+SERVE_KERNELS = ("flash_attention_packed", "flash_attention", "beam_update",
+                 "fused_decode_step", "lm_topk")
+TRAIN_KERNELS = ("flash_attention_packed", "flash_attention",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "ce_stats", "ce_grads")
+
+
+def caption_batch(cfg, batch: int, gen, device):
+    """A ragged caption batch as the fine-tune sees it: <s>, random tokens,
+    </s>, at most 30 tokens, right-padded to the longest; the pads and the
+    4-token prompt are -100 in the targets."""
+    import torch
+    from prismer_tpu_torch.models.caption import (CAPTION_MAX_TOKENS,
+                                                  caption_targets)
+    dec = cfg.decoder
+    lens = [CAPTION_MAX_TOKENS - (7 * i) % 20 for i in range(batch)]
+    width = max(lens)
+    ids = torch.randint(4, dec.vocab_size, (batch, width), generator=gen,
+                        device=device, dtype=torch.int32)
+    pos = torch.arange(width, device=device)[None]
+    n = torch.tensor(lens, device=device)[:, None]
+    ids[:, 0] = 0
+    ids = torch.where(pos == n - 1, dec.eos_token_id, ids)
+    mask = (pos < n).to(torch.int32)
+    ids = torch.where(mask.bool(), ids, dec.pad_token_id).to(torch.int32)
+    return {"experts": raw_batch(cfg, batch, gen, device), "input_ids": ids,
+            "attention_mask": mask,
+            "targets": caption_targets(ids, mask, PROMPT_LEN,
+                                       dec.pad_token_id)}
+
+
+def train_state(cfg, device, lr: float):
+    """Random Prismer (seeded) with its fp32 masters, freeze_vision, AdamW
+    under the per-step cosine over TRAIN_STEPS steps."""
+    from prismer_tpu_torch.models.prismer import (build_random_prismer,
+                                                  random_masters)
+    from prismer_tpu_torch.train import TrainState
+    from prismer_tpu_torch.train.schedules import per_step_cosine
+
+    model = build_random_prismer(cfg, SEED, device)
+    return TrainState.create(model, per_step_cosine(lr, 0.0, TRAIN_STEPS, 1),
+                             TRAIN_WD, "freeze_vision",
+                             random_masters(model, SEED), seed=SEED)
+
+
+def grad_rel(name: str, got, want, want_all) -> float:
+    """rel L2 of a gradient; a key projection's bias (zero in exact
+    arithmetic: softmax ignores a per-query constant) against the norm of
+    its weight's gradient."""
+    scale = want.double().norm()
+    if name.endswith(("key.bias", "k_proj.bias")):
+        scale = want_all[name[:-len("bias")] + "weight"].double().norm()
+    return ((got.double() - want.double()).norm()
+            / scale.clamp_min(1e-30)).item()
+
+
+def phase_train_parity(results):
+    """One fp32 train step of Prismer-BASE at batch 2 (full depth),
+    dropout 0 so both sides draw no masks: card (kernels) vs CPU (plain
+    versions); the same seed gives both the same weights and slots."""
+    import dataclasses
+
+    import torch
+    from prismer_tpu_torch.train import build_train_step
+    from prismer_tpu_torch.train.optim import FROZEN
+
+    cfg = slice_config("float32")
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, hidden_dropout_prob=0.0))
+    batch = caption_batch(cfg, 2, torch.Generator().manual_seed(SEED + 7),
+                          "cpu")
+    to_gpu = lambda x: ({k: to_gpu(v) for k, v in x.items()}
+                        if isinstance(x, dict) else x.cuda())
+    out = {}
+    for dev, b in (("cpu", batch), ("cuda", to_gpu(batch))):
+        t0 = time.perf_counter()
+        state = train_state(cfg, dev, 5e-5)
+        model = state.model
+        frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+                  if state.labels[n] == FROZEN}
+        state, metrics = build_train_step(model)(state, b)
+        loss = float(metrics["loss"])
+        grads = {n: leaf.grad.cpu() for n, leaf in state.trainable()}
+        stats = {k: t.cpu() for k, t in model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        still = all(torch.equal(model.get_parameter(n), t)
+                    for n, t in frozen.items())
+        out[dev] = (loss, grads, stats, still)
+        log(f"  {dev}: one fp32 train step at batch 2 in "
+            f"{time.perf_counter() - t0:.1f} s (model build included), loss "
+            f"{loss:.6f}, {len(grads)} trainable leaves, {len(frozen)} frozen")
+        del state, model, frozen
+    (l_c, g_c, s_c, f_c), (l_g, g_g, s_g, f_g) = out["cpu"], out["cuda"]
+    e_loss = abs(l_g - l_c) / abs(l_c)
+    errs = {n: grad_rel(n, g_g[n], g_c[n], g_c) for n in g_c}
+    relu_fed = {n for n in errs if RELU_FED.search(n)}
+    worst = max(set(errs) - relu_fed, key=errs.get)
+    worst_relu = max(relu_fed, key=errs.get)
+    e_stats = max(((s_g[k] - s_c[k]).abs()
+                   / (1.0 + s_c[k].abs())).max().item() for k in s_c)
+    log(f"  fp32 train step card vs CPU: loss rel {e_loss:.3g} (tol "
+        f"{TOL_TRAIN_LOSS}); gradient rel L2 max {errs[worst]:.3g} at {worst} "
+        f"(tol {TOL_TRAIN_GRAD}, {len(errs) - len(relu_fed)} leaves), "
+        f"{errs[worst_relu]:.3g} at {worst_relu} (tol {TOL_TRAIN_GRAD_RELU}, "
+        f"{len(relu_fed)} ReLU-fed stem leaves); {len(s_c)} BatchNorm "
+        f"statistics max err {e_stats:.3g} (tol {TOL_TRAIN_STATS}); frozen "
+        f"leaves unchanged {f_c and f_g}")
+    expect(g_c.keys() == g_g.keys() and len(g_c) > 100, "trainable leaves")
+    expect(len(relu_fed) == 72, f"{len(relu_fed)} ReLU-fed stem leaves")
+    expect(e_loss <= TOL_TRAIN_LOSS, "train loss card vs CPU")
+    expect(errs[worst] <= TOL_TRAIN_GRAD, f"gradient of {worst} card vs CPU")
+    expect(errs[worst_relu] <= TOL_TRAIN_GRAD_RELU,
+           f"gradient of {worst_relu} card vs CPU")
+    expect(e_stats <= TOL_TRAIN_STATS, "BatchNorm statistics card vs CPU")
+    expect(f_c and f_g, "a frozen leaf changed")
+    torch.cuda.empty_cache()
+
+
+def timed_steps(step, state, batch, n: int):
+    """(losses, CUDA-event ms) of n train steps, one after another."""
+    import torch
+    losses, times = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(metrics["loss"]))
+        times.append(start.elapsed_time(end))
+    return losses, times
+
+
+def split_train_step(state, batch, card: str) -> None:
+    """CUDA-event ms of one train step's parts, the step's own calls taken
+    apart: encoder forward (expert gather included), decoder forward (LM
+    head and CE stats kernel included), decoder backward (CE gradients and
+    attention backward), encoder backward, AdamW + master refresh."""
+    import torch
+    from prismer_tpu_torch.data.device import materialize_experts
+    from prismer_tpu_torch.models.prismer import compute_dtype
+    from prismer_tpu_torch.models.vit import draw_instance_slots
+    from prismer_tpu_torch.train.step import apply_gradients
+
+    model = state.model
+    v = model.cfg.vision
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    model.zero_grad(set_to_none=True)
+    state.optimizer.zero_grad(set_to_none=True)
+    ev[0].record()
+    experts = materialize_experts(batch["experts"], compute_dtype(model.cfg))
+    slots = draw_instance_slots(v.max_instances, v.num_instance_slots,
+                                state.generator)
+    enc = model.encode(experts, slots, True)
+    ev[1].record()
+    enc_in = enc.detach().requires_grad_()
+    loss = model.decode_loss(batch["input_ids"], batch["attention_mask"],
+                             enc_in, batch["targets"], True,
+                             state.generator).mean()
+    ev[2].record()
+    loss.backward()
+    ev[3].record()
+    enc.backward(enc_in.grad)
+    ev[4].record()
+    apply_gradients(state)
+    ev[5].record()
+    torch.cuda.synchronize()
+    parts = ("encoder fwd", "decoder fwd", "decoder bwd", "encoder bwd",
+             "AdamW")
+    log(f"  split train step, batch {batch['input_ids'].shape[0]}: " + ", ".join(
+        f"{p} {ev[i].elapsed_time(ev[i + 1]):.1f} ms"
+        for i, p in enumerate(parts)) + f" ({card})")
+
+
+def phase_train(results, card: str, profile: bool):
+    """The fine-tune path: bf16 Prismer-BASE, full depth, freeze_vision,
+    batch 4, ten AdamW steps on one ragged caption batch through
+    build_train_step; then the step's time at batch 4 and at batch 16."""
+    import torch
+    from prismer_tpu_torch.train import build_train_step
+    from prismer_tpu_torch.train.optim import FROZEN
+
+    cfg = slice_config("bfloat16")
+    state = train_state(cfg, "cuda", TRAIN_LR)
+    model = state.model
+    step = build_train_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    batch = caption_batch(cfg, 4, gen, "cuda")
+    start = {n: t.clone() for n, t in state.params_fp32().items()}
+    wrap = wrappers()
+    for fn in wrap.values():
+        fn.launches = 0
+    losses, times = timed_steps(step, state, batch, TRAIN_STEPS)
+    counts = {name: fn.launches for name, fn in wrap.items()}
+    for name in TRAIN_KERNELS[2:]:
+        results[name]["launches"] = counts[name]
+    after = state.params_fp32()
+    still = [n for n, l in state.labels.items()
+             if l != FROZEN and torch.equal(after[n], start[n])]
+    moved = [n for n, l in state.labels.items()
+             if l == FROZEN and not torch.equal(after[n], start[n])]
+    n_frozen = sum(l == FROZEN for l in state.labels.values())
+    log(f"  bf16 batch 4, lr {TRAIN_LR}: losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    log(f"  launches per step: " + ", ".join(
+        f"{n}={counts[n] / TRAIN_STEPS:g}" for n in TRAIN_KERNELS)
+        + "; serving kernels " + ", ".join(
+        f"{n}={counts[n]}" for n in SERVE_KERNELS[2:]))
+    log(f"  {len(state.labels) - n_frozen} trainable leaves, {len(still)} "
+        f"unmoved; {n_frozen} frozen leaves, {len(moved)} changed")
+    expect(all(map(math.isfinite, losses)), "train loss not finite")
+    expect(losses[-1] < losses[0], "train loss did not fall")
+    expect(not still, f"trainable leaves did not move: {still[:5]}")
+    expect(not moved, f"frozen leaves changed: {moved[:5]}")
+    expect(all(counts[n] > 0 for n in TRAIN_KERNELS),
+           f"train path launches {counts}")
+    ms4 = sum(times[2:]) / len(times[2:])
+    batch16 = caption_batch(cfg, 16, gen, "cuda")
+    _, times16 = timed_steps(step, state, batch16, 5)
+    ms16 = sum(times16[2:]) / len(times16[2:])
+    log(f"  train step after 2 warm-up steps: batch 4 {ms4:.1f} ms/step "
+        f"({' '.join(f'{t:.1f}' for t in times[2:])}), {4000.0 / ms4:.1f} "
+        f"images/s; batch 16 {ms16:.1f} ms/step "
+        f"({' '.join(f'{t:.1f}' for t in times16[2:])}), "
+        f"{16000.0 / ms16:.1f} images/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB ({card})")
+    if profile:
+        split_train_step(state, batch, card)
+        profile_request(lambda: step(state, batch), (), "train step, batch 4",
+                        card)
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = (
     ("flash_attention_packed", "prismer_tpu_torch/csrc/flash_attention.cu",
@@ -745,25 +1178,40 @@ KERNELS = (
      "prismer_tpu/ops/fused_decode.py:637"),
     ("lm_topk", "prismer_tpu_torch/csrc/lm_topk.cu",
      "prismer_tpu/ops/lm_topk.py:263"),
+    ("flash_attention_bwd_dq", "prismer_tpu_torch/csrc/flash_attention_bwd.cu",
+     "prismer_tpu/ops/flash_attention.py:457"),
+    ("flash_attention_bwd_dkv",
+     "prismer_tpu_torch/csrc/flash_attention_bwd.cu",
+     "prismer_tpu/ops/flash_attention.py:483"),
+    ("ce_stats", "prismer_tpu_torch/csrc/fused_ce.cu",
+     "prismer_tpu/ops/fused_ce.py:165"),
+    ("ce_grads", "prismer_tpu_torch/csrc/fused_ce.cu",
+     "prismer_tpu/ops/fused_ce.py:255"),
 )
 
 
 def wrappers():
     from prismer_tpu_torch.ops import beam_update as bu
     from prismer_tpu_torch.ops import flash_attention as fa
+    from prismer_tpu_torch.ops import fused_ce as fc
     from prismer_tpu_torch.ops import fused_decode as fd
     from prismer_tpu_torch.ops import lm_topk as lt
     return {"flash_attention_packed": fa.flash_attention_packed,
             "flash_attention": fa.flash_attention,
             "beam_update": bu.beam_update,
             "fused_decode_step": fd.fused_decode_step,
-            "lm_topk": lt.lm_topk}
+            "lm_topk": lt.lm_topk,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "ce_stats": fc.ce_stats,
+            "ce_grads": fc.ce_grads}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="profile one batch-8 request on each decode path")
+                        help="profile one batch-8 request on each decode "
+                        "path and one train step")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -795,7 +1243,9 @@ def main(argv=None) -> int:
               ("fused parity", phase_fused_parity),
               ("serve", lambda r: phase_serve(r, card, args.profile)),
               ("serve fused off",
-               lambda r: phase_serve_per_layer(r, card, args.profile)))
+               lambda r: phase_serve_per_layer(r, card, args.profile)),
+              ("train parity", phase_train_parity),
+              ("train", lambda r: phase_train(r, card, args.profile)))
     for name, fn in phases:
         log(f"phase {name}")
         t0 = time.perf_counter()
@@ -827,6 +1277,8 @@ def phase_kernels(results):
     check_beam_update(results)
     check_fused_decode(results)
     check_lm_topk(results)
+    check_flash_backward(results)
+    check_fused_ce(results)
 
 
 if __name__ == "__main__":

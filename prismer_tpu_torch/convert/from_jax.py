@@ -17,6 +17,12 @@ Strict: raises on a JAX leaf it cannot place (unknown key or shape) and on
 any port parameter or buffer left unset. Values are cast to the port
 tensor's dtype (the compute dtype for Dense/Conv weights, as flax casts them
 at use). Imports neither jax nor flax.
+
+Training keeps fp32 masters of the weights stored in the compute dtype:
+`load_jax_masters` takes them from the JAX fp32 values, never from the
+rounded weights. `to_jax_variables` and `jax_path_and_value` are the
+inverse map (port name -> flax path and layout), used to export params and
+to compare gradients leaf by leaf.
 """
 
 from __future__ import annotations
@@ -58,6 +64,57 @@ def torch_key_and_value(collection: str, path: Tuple[str, ...],
     if leaf == "scale":
         return ".".join(mods + ["weight"]), value
     return ".".join(path), value
+
+
+def jax_path_and_value(key: str, value: np.ndarray
+                       ) -> Tuple[str, Tuple[str, ...], np.ndarray]:
+    """Map one port state_dict entry to (flax collection, path, array in
+    flax layout): the inverse of `torch_key_and_value`."""
+    *mods, leaf = key.split(".")
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stats", tuple(mods) + (leaf.split("_")[1],), value
+    if leaf == "weight":
+        if value.ndim == 2:
+            return "params", tuple(mods) + ("kernel",), value.T
+        if value.ndim == 4:
+            return "params", tuple(mods) + ("kernel",), value.transpose(
+                2, 3, 1, 0)
+        return "params", tuple(mods) + ("scale",), value
+    return "params", tuple(mods) + (leaf,), value
+
+
+def to_jax_variables(tensors: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """{"params": tree, "batch_stats": tree} of fp32 numpy arrays in flax
+    layout from port tensors keyed by state_dict name (for example a
+    model's state_dict with its masters over the rounded weights)."""
+    out: Dict[str, Any] = {}
+    for key, t in tensors.items():
+        coll, path, value = jax_path_and_value(
+            key, t.detach().float().cpu().numpy())
+        node = out.setdefault(coll, {})
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = value
+    return out
+
+
+def load_jax_masters(model: nn.Module, variables: Dict[str, Any]
+                     ) -> Dict[str, torch.Tensor]:
+    """fp32 masters, from the JAX fp32 values, of every model parameter
+    stored in a lower precision, in port layout on the parameter's device."""
+    params = dict(model.named_parameters())
+    masters = {}
+    for path, value in _leaves(variables["params"]):
+        key, value = torch_key_and_value("params", path, value)
+        p = params.get(key)
+        if p is not None and p.dtype != torch.float32:
+            masters[key] = torch.from_numpy(np.array(value, np.float32)).to(
+                p.device)
+    missing = {k for k, p in params.items() if p.dtype != torch.float32}
+    missing -= set(masters)
+    if missing:
+        raise KeyError(f"no JAX value for masters {sorted(missing)}")
+    return masters
 
 
 @torch.no_grad()

@@ -1,5 +1,7 @@
-"""Captioning task head, ported from prismer_tpu/models/caption.py
-(generation only): beam 3, max_length 20, min_length 8.
+"""Captioning task head, ported from prismer_tpu/models/caption.py: the
+training loss (captions of at most 30 tokens, pads and prompt positions
+masked to -100, mean of per-sample summed label-smoothed CE) and generation
+(beam 3, max_length 20, min_length 8).
 """
 
 from __future__ import annotations
@@ -14,9 +16,37 @@ from prismer_tpu_torch.models.generation import beam_search
 from prismer_tpu_torch.models.prismer import (Prismer, compute_dtype,
                                               prepare_serving_variables)
 
+CAPTION_MAX_TOKENS = 30
 GEN_NUM_BEAMS = 3
 GEN_MAX_LENGTH = 20
 GEN_MIN_LENGTH = 8
+
+
+def caption_targets(input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                    prompt_len: int, pad_token_id: int) -> torch.Tensor:
+    """-100-masked labels: pads and the first `prompt_len` positions."""
+    targets = torch.where(input_ids == pad_token_id,
+                          torch.full_like(input_ids, -100), input_ids)
+    if prompt_len > 0:
+        targets[:, :prompt_len] = -100
+    return targets
+
+
+def caption_loss(model: Prismer, experts: Dict[str, Any],
+                 input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                 prompt_len: int, train: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean over the batch of the per-sample summed CE. In train mode the
+    stems' BatchNorm running statistics are updated in place (the JAX
+    version returns them as `batch_stats` updates)."""
+    targets = caption_targets(input_ids, attention_mask, prompt_len,
+                              model.cfg.decoder.pad_token_id)
+    per_sample = model.forward_loss(experts, input_ids, attention_mask,
+                                    targets, train, generator)
+    if weights is not None:
+        per_sample = per_sample * weights
+    return per_sample.mean()
 
 
 def build_generate_fn(model: Prismer, *, num_beams: int = GEN_NUM_BEAMS,

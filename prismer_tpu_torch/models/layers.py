@@ -8,6 +8,8 @@ Numerics follow the JAX package:
   * Attention scores and logits accumulate in fp32 from compute-dtype
     operands (`matmul_f32`); softmax runs in fp32 and its probabilities are
     cast to the compute dtype before the PV product.
+  * `Dropout` is flax `nn.Dropout` in train mode, its masks drawn from a
+    generator seeded per layer and step (see its docstring for why).
 Layouts are batch-first (B, L, D) and NHWC for images, as in JAX.
 `ln_proj` and the packed-qkv projection are off by default in JAX and are
 not ported.
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from prismer_tpu_torch.ops.flash_attention import (NEG_INF, flash_attention,
                                                    packed_attention)
@@ -48,6 +51,41 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "quick_gelu": quick_gelu,
     "squared_relu": squared_relu,
 }
+
+
+class Dropout:
+    """flax `nn.Dropout` in train mode: keep each element with probability
+    1 - rate and scale what is kept by 1 / (1 - rate), in the input's dtype;
+    the identity when `seed` is None (eval) or rate is 0.
+
+    The masks come from a generator made here from `seed` on the input's
+    device. A rematerialised layer gets its seed as an argument and builds
+    its Dropout inside the checkpointed call, so the recomputation draws the
+    same masks: torch.utils.checkpoint restores only the default generators'
+    states, never an explicit generator's."""
+
+    def __init__(self, rate: float, seed: Optional[int],
+                 device: torch.device):
+        self.keep = 1.0 - rate
+        self.gen = None
+        if seed is not None and rate > 0.0:
+            self.gen = torch.Generator(device=device)
+            self.gen.manual_seed(seed)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.gen is None:
+            return x
+        keep = torch.rand(x.shape, generator=self.gen,
+                          device=x.device) < self.keep
+        return torch.where(keep, x / self.keep, torch.zeros_like(x))
+
+
+def remat(fn: Callable, *args):
+    """fn(*args) with its activations recomputed in the backward (flax
+    `nn.remat`), the non-reentrant checkpoint. No global RNG state is
+    stashed: the model's random draws come from explicit seeds."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@ prismer_tpu/models/prismer.py, plus a seeded random initialisation for runs
 without converted weights.
 
 Submodule names equal the flax scope names, so `state_dict` keys are the
-flax parameter paths joined by '.' (convert/from_jax.py relies on that).
+flax parameter paths joined by '.' (convert/from_jax.py and train/optim.py
+rely on that).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from prismer_tpu_torch.models.layers import Conv, Dense, LayerNorm
 from prismer_tpu_torch.models.roberta import (Cache, RobertaCausalDecoder,
                                               pack_decode_collection,
                                               use_fused_decode)
-from prismer_tpu_torch.models.vit import BatchNorm, VisionTransformer
+from prismer_tpu_torch.models.vit import (BatchNorm, VisionTransformer,
+                                          draw_instance_slots)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -32,9 +34,9 @@ def compute_dtype(cfg: PrismerConfig) -> torch.dtype:
 
 
 class Prismer(nn.Module):
-    """Expert encoder + text decoder; the task heads build on these methods.
-    Inference only: dropout and BatchNorm statistics updates are not
-    ported."""
+    """Expert encoder + text decoder; the task heads build on these
+    methods. Training mode (`train=True`) takes an explicit generator for
+    the random instance slots and the dropout seeds."""
 
     def __init__(self, cfg: PrismerConfig, device=None):
         super().__init__()
@@ -44,9 +46,10 @@ class Prismer(nn.Module):
         self.text_decoder = RobertaCausalDecoder(cfg.decoder, dtype, device)
 
     def encode(self, experts: Dict[str, Any],
-               instance_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+               instance_slots: Optional[torch.Tensor] = None,
+               train: bool = False) -> torch.Tensor:
         """The multi-modal encoder: (B, L, vision_hidden)."""
-        return self.expert_encoder(experts, instance_slots)
+        return self.expert_encoder(experts, instance_slots, train)
 
     def decode_logits(self, input_ids: torch.Tensor,
                       attention_mask: torch.Tensor,
@@ -54,6 +57,39 @@ class Prismer(nn.Module):
         """Full-sequence decoder logits (B, L, V) fp32."""
         return self.text_decoder(input_ids, attention_mask,
                                  encoder_hidden_states)
+
+    def decode_loss(self, input_ids: torch.Tensor,
+                    attention_mask: torch.Tensor,
+                    encoder_hidden_states: torch.Tensor,
+                    targets: torch.Tensor, train: bool = False,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        """Per-sample summed label-smoothed CE (B,) fp32 (through the
+        fused LM-head + CE kernels when ops/fused_ce.use_fused_ce says so)."""
+        return self.text_decoder.per_sample_loss(
+            input_ids, attention_mask, encoder_hidden_states, targets, train,
+            generator)
+
+    def forward_loss(self, experts: Dict[str, Any], input_ids: torch.Tensor,
+                     attention_mask: torch.Tensor, targets: torch.Tensor,
+                     train: bool = False,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+        """Encoder + decoder -> (B,) per-sample summed smoothed CE. In
+        training the instance slots and then the dropout seeds are drawn
+        from `generator` (the JAX step's 'instance' and 'dropout' streams),
+        and the stems' BatchNorm running statistics are updated in place."""
+        slots = None
+        if train:
+            if generator is None:
+                raise ValueError("training needs a generator")
+            v = self.cfg.vision
+            if "obj_detection" in v.experts_dict:
+                slots = draw_instance_slots(v.max_instances,
+                                            v.num_instance_slots, generator)
+        enc = self.encode(experts, slots, train)
+        return self.decode_loss(input_ids, attention_mask, enc, targets,
+                                train, generator)
 
     def init_cache(self, input_ids: torch.Tensor,
                    attention_mask: torch.Tensor,
@@ -90,36 +126,37 @@ def prepare_serving_variables(model: Prismer
     return pack_decode_collection(model.text_decoder, with_emb=True)
 
 
-@torch.no_grad()
-def init_random_(model: Prismer, seed: int) -> Prismer:
-    """Fill every parameter and buffer from `seed`, flax-style: lecun-normal
-    Dense/Conv kernels, zero biases, unit LN/BN scales, N(0, 0.02) word,
-    position and token-type tables, width**-0.5 * N(0, 1) positional
-    embedding, latents and instance table, BN running mean 0 and var 1.
+def random_values(model: Prismer, seed: int) -> Dict[str, torch.Tensor]:
+    """The fp32 value of every parameter and buffer drawn from `seed`, on
+    the CPU, keyed by state_dict name: lecun-normal Dense/Conv kernels, zero
+    biases, unit LN/BN scales, N(0, 0.02) word, position and token-type
+    tables, width**-0.5 * N(0, 1) positional embedding, latents and
+    instance table, BN running mean 0 and var 1.
 
-    Draws happen on the CPU in fp32 and in module order, so one seed gives
-    the same weights on every device and in every compute dtype (the
-    bf16 model holds the bf16 rounding of the fp32 model's weights)."""
+    Draws happen in fp32 and in module order, so one seed gives the same
+    values for every device and compute dtype."""
     gen = torch.Generator().manual_seed(seed)
+    names = {t: n for n, t in model.state_dict(keep_vars=True).items()}
+    values: Dict[str, torch.Tensor] = {}
 
-    def fill(t: torch.Tensor, values: torch.Tensor) -> None:
-        t.copy_(values.to(device=t.device, dtype=t.dtype))
+    def put(t: torch.Tensor, value: torch.Tensor) -> None:
+        values[names[t]] = value
 
     def normal(t: torch.Tensor, std: float) -> None:
-        fill(t, torch.randn(t.shape, generator=gen) * std)
+        put(t, torch.randn(t.shape, generator=gen) * std)
 
     for mod in model.modules():
         if isinstance(mod, (Dense, Conv)):
             fan_in = mod.weight[0].numel()
             normal(mod.weight, 1.0 / math.sqrt(fan_in))
             if mod.bias is not None:
-                mod.bias.zero_()
+                put(mod.bias, torch.zeros(mod.bias.shape))
         elif isinstance(mod, (LayerNorm, BatchNorm)):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
+            put(mod.weight, torch.ones(mod.weight.shape))
+            put(mod.bias, torch.zeros(mod.bias.shape))
             if isinstance(mod, BatchNorm):
-                mod.running_mean.zero_()
-                mod.running_var.fill_(1.0)
+                put(mod.running_mean, torch.zeros(mod.running_mean.shape))
+                put(mod.running_var, torch.ones(mod.running_var.shape))
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("word_embeddings", "position_embeddings",
@@ -129,8 +166,30 @@ def init_random_(model: Prismer, seed: int) -> Prismer:
                       "instance_embedding"):
             normal(p, p.shape[-1] ** -0.5)
         elif name == "text_decoder.lm_head.bias":
-            p.zero_()
+            put(p, torch.zeros(p.shape))
+    return values
+
+
+@torch.no_grad()
+def init_random_(model: Prismer, seed: int) -> Prismer:
+    """Fill every parameter and buffer with `random_values(model, seed)`
+    (the bf16 model holds the bf16 rounding of the fp32 model's weights)."""
+    tensors = model.state_dict(keep_vars=True)
+    for name, value in random_values(model, seed).items():
+        t = tensors[name]
+        t.copy_(value.to(device=t.device, dtype=t.dtype))
     return model
+
+
+def random_masters(model: Prismer, seed: int) -> Dict[str, torch.Tensor]:
+    """fp32 master values of the parameters the model stores in a lower
+    precision, as drawn from `seed` (never the rounded weights), on the
+    model's device: the train state's masters for a randomly initialised
+    model."""
+    values = random_values(model, seed)
+    return {name: values[name].to(p.device)
+            for name, p in model.named_parameters()
+            if p.dtype != torch.float32}
 
 
 def build_random_prismer(cfg: PrismerConfig, seed: int,

@@ -5,6 +5,11 @@ Each decoder layer runs self-attn -> cross-attn -> adaptor -> MLP; a final
 layer without cross-attention finishes the stack; the LM head is dense ->
 gelu -> LayerNorm -> tied-embedding projection + bias, accumulated in fp32.
 
+Training (`per_sample_loss(train=True)`): dropout after the embeddings' LN
+and after each AttentionOutput dense (none on attention probabilities, as
+in JAX), each layer rematerialised, and the loss through the fused LM-head
++ CE kernels (ops/fused_ce) when `use_fused_ce` says so.
+
 Two cached decode paths, as in JAX (`set_fused_decode`):
   * per layer (fused decode off): self K and V in natural layout
     (NL, N, H, T, Dh), N = B * beams, each step writing its column in place;
@@ -26,11 +31,12 @@ import torch
 import torch.nn as nn
 
 from prismer_tpu_torch.config import TextDecoderConfig
-from prismer_tpu_torch.models.layers import (Adaptor, Dense, LayerNorm,
-                                             attention, dot_product_attention,
+from prismer_tpu_torch.models.layers import (Adaptor, Dense, Dropout,
+                                             LayerNorm, attention,
+                                             dot_product_attention,
                                              gelu_exact, matmul_f32,
                                              merge_heads, padding_mask_bias,
-                                             split_heads)
+                                             remat, split_heads)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -130,7 +136,7 @@ class SelfAttentionCore(nn.Module):
 
 
 class AttentionOutput(nn.Module):
-    """dense -> LayerNorm(+ residual)."""
+    """dense -> dropout -> LayerNorm(+ residual)."""
 
     def __init__(self, in_dim: int, cfg: TextDecoderConfig, dtype,
                  device=None):
@@ -138,9 +144,12 @@ class AttentionOutput(nn.Module):
         self.dense = Dense(in_dim, cfg.hidden_size, dtype, device)
         self.ln = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, device)
 
-    def forward(self, hidden: torch.Tensor,
-                residual: torch.Tensor) -> torch.Tensor:
-        return self.ln(self.dense(hidden) + residual)
+    def forward(self, hidden: torch.Tensor, residual: torch.Tensor,
+                dropout: Optional[Dropout] = None) -> torch.Tensor:
+        hidden = self.dense(hidden)
+        if dropout is not None:
+            hidden = dropout(hidden)
+        return self.ln(hidden + residual)
 
 
 class FeedForward(nn.Module):
@@ -152,8 +161,10 @@ class FeedForward(nn.Module):
                                   dtype, device)
         self.out = AttentionOutput(cfg.intermediate_size, cfg, dtype, device)
 
-    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
-        return self.out(gelu_exact(self.intermediate(hidden)), hidden)
+    def forward(self, hidden: torch.Tensor,
+                dropout: Optional[Dropout] = None) -> torch.Tensor:
+        return self.out(gelu_exact(self.intermediate(hidden)), hidden,
+                        dropout)
 
 
 class DecoderLayer(nn.Module):
@@ -164,6 +175,7 @@ class DecoderLayer(nn.Module):
                  device=None):
         super().__init__()
         self.with_cross = with_cross
+        self.dropout_rate = cfg.hidden_dropout_prob
         self.self_attn = SelfAttentionCore(cfg, cfg.hidden_size, dtype, device)
         self.self_out = AttentionOutput(cfg.hidden_size, cfg, dtype, device)
         if with_cross:
@@ -176,14 +188,18 @@ class DecoderLayer(nn.Module):
         self.mlp = FeedForward(cfg, dtype, device)
 
     def forward(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
-                encoder_hidden_states: Optional[torch.Tensor]
-                ) -> torch.Tensor:
+                encoder_hidden_states: Optional[torch.Tensor],
+                dropout_seed: Optional[int] = None) -> torch.Tensor:
+        """Full-sequence pass; with a dropout seed (training) the three
+        (two without cross-attention) dropout sites draw their masks, in
+        order, from that seed."""
+        drop = Dropout(self.dropout_rate, dropout_seed, hidden.device)
         h = self.self_attn(hidden, hidden, attention_mask, causal=True)
-        hidden = self.self_out(h, hidden)
+        hidden = self.self_out(h, hidden, drop)
         if self.with_cross:
             h = self.cross_attn(hidden, encoder_hidden_states)
-            hidden = self.adaptor(self.cross_out(h, hidden))
-        return self.mlp(hidden)
+            hidden = self.adaptor(self.cross_out(h, hidden, drop))
+        return self.mlp(hidden, drop)
 
     def prefill(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
                 cross_k: Optional[torch.Tensor],
@@ -215,7 +231,8 @@ class DecoderLayer(nn.Module):
 
 
 class Embeddings(nn.Module):
-    """word + position + token-type embeddings (fp32 sum), cast, LN."""
+    """word + position + token-type embeddings (fp32 sum), cast, LN,
+    dropout."""
 
     def __init__(self, cfg: TextDecoderConfig, dtype, device=None):
         super().__init__()
@@ -229,12 +246,13 @@ class Embeddings(nn.Module):
             torch.zeros(cfg.type_vocab_size, d, device=device))
         self.ln = LayerNorm(d, cfg.layer_norm_eps, device)
 
-    def forward(self, input_ids: torch.Tensor,
-                position_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, position_ids: torch.Tensor,
+                dropout: Optional[Dropout] = None) -> torch.Tensor:
         emb = (self.word_embeddings[input_ids.long()]
                + self.position_embeddings[position_ids.long()]
                + self.token_type_embeddings[0][None, None, :])
-        return self.ln(emb.to(self.dtype))
+        emb = self.ln(emb.to(self.dtype))
+        return emb if dropout is None else dropout(emb)
 
 
 class LMHead(nn.Module):
@@ -262,9 +280,9 @@ class LMHead(nn.Module):
 class RobertaCausalDecoder(nn.Module):
     """embeddings -> N x DecoderLayer -> output layer -> LM head.
 
-    Entry points: forward (full-sequence logits), init_cache (prefill the
-    prompt, build the cache, last-position logits), decode_step (one cached
-    token step)."""
+    Entry points: forward (full-sequence logits), per_sample_loss (the
+    training / eval loss), init_cache (prefill the prompt, build the cache,
+    last-position logits), decode_step (one cached token step)."""
 
     def __init__(self, cfg: TextDecoderConfig, dtype=torch.float32,
                  device=None):
@@ -282,16 +300,60 @@ class RobertaCausalDecoder(nn.Module):
         return [getattr(self, f"layers_{i}")
                 for i in range(self.cfg.num_hidden_layers)]
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+    def _trunk(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+               encoder_hidden_states: torch.Tensor, train: bool,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Embeddings and every layer. In training one dropout seed per
+        site group is drawn from `generator` before any layer runs, and
+        each layer is rematerialised with its seed as an argument."""
         c = self.cfg
+        layers = self.cross_layers() + [self.output_layer]
+        seeds = [None] * (len(layers) + 1)
+        if train:
+            if generator is None:
+                raise ValueError("training needs a generator for dropout")
+            seeds = torch.randint(0, 2 ** 62, (len(seeds),),
+                                  generator=generator).tolist()
         pos = create_position_ids(input_ids, attention_mask, c.pad_token_id)
-        hidden = self.embeddings(input_ids, pos)
+        hidden = self.embeddings(input_ids, pos, Dropout(
+            c.hidden_dropout_prob, seeds[0], input_ids.device))
         enc = encoder_hidden_states.to(self.dtype)
-        for layer in self.cross_layers():
-            hidden = layer(hidden, attention_mask, enc)
-        hidden = self.output_layer(hidden, attention_mask, None)
+        for layer, seed in zip(layers, seeds[1:]):
+            src = enc if layer.with_cross else None
+            if train:
+                hidden = remat(layer, hidden, attention_mask, src, seed)
+            else:
+                hidden = layer(hidden, attention_mask, src)
+        return hidden
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                encoder_hidden_states: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Full-sequence logits (B, L, V) fp32."""
+        hidden = self._trunk(input_ids, attention_mask,
+                             encoder_hidden_states, train, generator)
         return self.lm_head(hidden, self.embeddings.word_embeddings)
+
+    def per_sample_loss(self, input_ids: torch.Tensor,
+                        attention_mask: torch.Tensor,
+                        encoder_hidden_states: torch.Tensor,
+                        targets: torch.Tensor, train: bool = False,
+                        generator: Optional[torch.Generator] = None
+                        ) -> torch.Tensor:
+        """Per-sample summed label-smoothed CE (B,) fp32: through the fused
+        LM-head + CE kernels when `use_fused_ce(train, device)`, else from
+        the materialised logits (`label_smoothed_loss`)."""
+        from prismer_tpu_torch.ops.fused_ce import (fused_label_smoothed_loss,
+                                                    use_fused_ce)
+        hidden = self._trunk(input_ids, attention_mask,
+                             encoder_hidden_states, train, generator)
+        if use_fused_ce(train, hidden.device):
+            h = self.lm_head.features(hidden).to(self.dtype)
+            emb = self.embeddings.word_embeddings.to(self.dtype)
+            return fused_label_smoothed_loss(h, emb, self.lm_head.bias,
+                                             targets)
+        logits = self.lm_head(hidden, self.embeddings.word_embeddings)
+        return label_smoothed_loss(logits, targets)
 
     def init_cache(self, input_ids: torch.Tensor,
                    attention_mask: torch.Tensor,
@@ -426,3 +488,19 @@ class RobertaCausalDecoder(nn.Module):
         logits = self.lm_head(hidden[:, None, :],
                               self.embeddings.word_embeddings)
         return logits[:, 0, :], cache
+
+
+def label_smoothed_loss(logits: torch.Tensor, labels: torch.Tensor,
+                        smoothing: float = 0.1) -> torch.Tensor:
+    """Per-sample summed label-smoothed CE with -100 ignored: logits (B, L,
+    V) shifted off the last position, labels off the first
+    (torch CrossEntropyLoss(label_smoothing=0.1, reduction='none') summed
+    per sample)."""
+    shift = logits[:, :-1, :].float()
+    labels = labels[:, 1:]
+    valid = labels != -100
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(shift, dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    per_tok = (1.0 - smoothing) * nll + smoothing * (-logp.mean(-1))
+    return torch.where(valid, per_tok, torch.zeros_like(per_tok)).sum(1)

@@ -5,7 +5,10 @@ ReLU stacks for the expert label maps), the shared positional embedding
 re-interpolated per modality, the random-slot instance embedding for
 obj_detection, the Perceiver resampler over all expert tokens, and a trunk
 of pre-LN blocks with an adaptor between attention and MLP. Inputs are NHWC
-and activations batch-first (B, L, D), as in JAX.
+and activations batch-first (B, L, D), as in JAX. In training
+(`forward(train=True)`) the stems' BatchNorms normalise with batch
+statistics and update their running ones, and the trunk blocks are
+rematerialised.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch.nn.functional as F
 from prismer_tpu_torch.config import VisionEncoderConfig
 from prismer_tpu_torch.models.layers import (Adaptor, Conv, LayerNorm, Mlp,
                                              MultiHeadAttention,
-                                             interpolate_pos_embed)
+                                             interpolate_pos_embed, remat)
 from prismer_tpu_torch.models.resampler import PerceiverResampler
 from prismer_tpu_torch.ops.resize import (bilinear_resize_align_corners,
                                           nearest_resize)
@@ -38,21 +41,38 @@ def draw_instance_slots(max_instances: int, num_slots: int,
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last (channel) axis, in fp32 from the
-    running statistics (flax BatchNorm(use_running_average=True,
-    dtype=float32) operation order)."""
+    """BatchNorm over the last (channel) axis in fp32, flax
+    BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32) semantics.
+
+    Eval: the running statistics. Train: the batch statistics over
+    (B, H, W), with flax's variance max(0, E[x^2] - E[x]^2) (biased), and the
+    running statistics become 0.9 * old + 0.1 * batch in place.
+    `nn.BatchNorm2d` is not used: its momentum weighs the other way and it
+    keeps an unbiased running variance."""
 
     def __init__(self, dim: int, eps: float = 1e-5, device=None):
         super().__init__()
         self.eps = eps
+        self.momentum = 0.9
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
         self.register_buffer("running_mean", torch.zeros(dim, device=device))
         self.register_buffer("running_var", torch.ones(dim, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x.float() - self.running_mean) * mul + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x32 = x.float()
+        if train:
+            axes = tuple(range(x.ndim - 1))
+            mean = x32.mean(axes)
+            var = ((x32 * x32).mean(axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x32 - mean) * mul + self.bias
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -94,13 +114,13 @@ class LabelStem(nn.Module):
             cin = f
         self.proj = Conv(width, width, 1, 1, 0, dtype, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h, w = x.shape[1], x.shape[2]
         x = bilinear_resize_align_corners(x.to(self.dtype), int(h * self.scale),
                                           int(w * self.scale))
         for i in range(4):
             x = getattr(self, f"Conv_{i}")(x)
-            x = F.relu(getattr(self, f"bn_{i}")(x).to(self.dtype))
+            x = F.relu(getattr(self, f"bn_{i}")(x, train).to(self.dtype))
         return self.proj(x)
 
 
@@ -137,7 +157,8 @@ class VisionTransformer(nn.Module):
         self.ln_post = LayerNorm(width, device=device)
 
     def forward(self, inputs: Dict[str, Any],
-                instance_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+                instance_slots: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
         cfg = self.cfg
         pos = self.positional_embedding
         experts_tokens = []
@@ -148,11 +169,11 @@ class VisionTransformer(nn.Module):
             if exp == "rgb":
                 x = self.conv1_rgb(inputs[exp])
             elif exp == "obj_detection":
-                x = getattr(self, f"conv1_{exp}")(inputs[exp]["label"])
+                x = getattr(self, f"conv1_{exp}")(inputs[exp]["label"], train)
                 x = self._add_instance_embedding(
                     x, inputs[exp]["instance"], instance_slots)
             else:
-                x = getattr(self, f"conv1_{exp}")(inputs[exp])
+                x = getattr(self, f"conv1_{exp}")(inputs[exp], train)
             b, h, w, d = x.shape
             x = x.reshape(b, h * w, d)
             if exp == "rgb":
@@ -168,7 +189,8 @@ class VisionTransformer(nn.Module):
             x = rgb_tokens
         x = self.ln_pre(x)
         for i in range(cfg.layers):
-            x = getattr(self, f"resblocks_{i}")(x)
+            block = getattr(self, f"resblocks_{i}")
+            x = remat(block, x) if train else block(x)
         return self.ln_post(x)
 
     def _add_instance_embedding(self, x: torch.Tensor, instance: torch.Tensor,

@@ -108,6 +108,16 @@ def kernels() -> ctypes.CDLL:
     lib.prismer_fused_decode_step.restype = _I
     lib.prismer_lm_topk.argtypes = [_P] * 8 + [_I] * 9 + [_P]
     lib.prismer_lm_topk.restype = _I
+    for name, outs in (("prismer_flash_attention_bwd_dq", 1),
+                       ("prismer_flash_attention_bwd_dkv", 2)):
+        fn = getattr(lib, name)
+        fn.argtypes = ([_P] * (7 + outs) + [_I] * 5
+                       + [ctypes.POINTER(_L), _L, _I, _I, _F, _P])
+        fn.restype = _I
+    lib.prismer_ce_stats.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.prismer_ce_stats.restype = _I
+    lib.prismer_ce_grads.argtypes = [_P] * 10 + [_I] * 5 + [_F, _F, _I, _P]
+    lib.prismer_ce_grads.restype = _I
     return lib
 
 

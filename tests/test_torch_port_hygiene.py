@@ -29,10 +29,12 @@ from prismer_tpu_torch.ops import flash_attention as port_fa
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "flax", "yaml", "regex", "PIL")
+BLOCKED = ("jax", "flax", "optax", "orbax", "yaml", "regex", "PIL")
 
 
 def test_package_imports_without_jax_flax_yaml_regex_pil():
+    """Every module (train/ and ops/fused_ce among them) imports with jax,
+    flax, optax, orbax, yaml, regex and PIL unimportable."""
     code = "\n".join([
         "import sys, importlib, pkgutil",
         f"for m in {BLOCKED!r}:",
@@ -44,9 +46,16 @@ def test_package_imports_without_jax_flax_yaml_regex_pil():
         "    importlib.import_module(name)",
         "bad = [m for m in sys.modules if m.split('.')[0] == 'prismer_tpu']",
         "assert not bad, bad",
-        "assert len(names) >= 14, names",
+        "assert len(names) >= 22, names",
         "assert {'prismer_tpu_torch.ops.fused_decode',",
-        "        'prismer_tpu_torch.ops.lm_topk'} <= set(names), names",
+        "        'prismer_tpu_torch.ops.lm_topk',",
+        "        'prismer_tpu_torch.ops.fused_ce',",
+        "        'prismer_tpu_torch.train.step',",
+        "        'prismer_tpu_torch.train.state',",
+        "        'prismer_tpu_torch.train.optim',",
+        "        'prismer_tpu_torch.train.schedules',",
+        "        'prismer_tpu_torch.train.checkpoint',",
+        "        'prismer_tpu_torch.train.metrics'} <= set(names), names",
         "print(len(names))",
     ])
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -180,8 +189,9 @@ def test_smoke_run_turns_tf32_off():
     assert "torch.backends.cudnn.allow_tf32 = False" in src
 
 
-KERNEL_SOURCES = ("flash_attention.cu", "beam_update.cu", "fused_decode.cu",
-                  "lm_topk.cu", "common.cuh")
+KERNEL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+                  "beam_update.cu", "fused_decode.cu", "lm_topk.cu",
+                  "fused_ce.cu", "common.cuh")
 
 
 def test_kernel_library_named_by_source_hash():

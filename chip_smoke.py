@@ -12,18 +12,35 @@ requests went through every serving kernel. Then the caption fine-tune
 step: one fp32 train step on the card against the CPU, and ten bf16 AdamW
 steps through `build_train_step` that must lower the loss, move every
 trainable leaf, keep every frozen one and launch every training kernel,
-timed at batch 4 and 16. Exits non-zero if any phase fails or if there is
-no CUDA device; the last line of standard output is a JSON object with the
-device.
+timed at batch 4 and 16. Then the segmentation expert's label generation:
+the fp32 Swin-L Mask2Former at 480 px on the card against the CPU, and the
+generator's entry point (`prismer_tpu_torch.experts.generate.main`) over 37
+synthetic PNGs at batch 16, which must launch the deformable-attention
+kernel 18 times and write every label map at its image's size. Exits
+non-zero if any phase fails or if there is no CUDA device; the last line of
+standard output is a JSON object with the device.
 
 The slice: Prismer-BASE, all six experts, 480 px, bf16; serving with beam
 3, max length 20, min length 8, 4-token prompt, batch 8 and 5; fine-tuning
 with freeze_vision, AdamW (wd 0.05) over fp32 masters, ragged captions of
 at most 30 tokens with the 4-token prompt masked, batch 4 (and 16 for
-time). Weights are random, drawn from a fixed seed. `--profile` adds a
-torch.profiler view and an encode / beam-search split of one batch-8
-request on each decode path, and the same for one train step with its
-encoder / decoder / optimizer split.
+time). The segmentation slice: MaskFormer(num_classes=133) as
+`load_expert_model('seg_coco')` builds it (Swin-L, 6 deformable encoder
+layers, 200 queries x 9 decoder layers), fp32, 480 px, batch 16. Weights
+are random, drawn from a fixed seed. `--profile` adds a torch.profiler view
+and an encode / beam-search split of one batch-8 request on each decode
+path, the same for one train step with its encoder / decoder / optimizer
+split, and for one batch-16 segmentation forward its backbone / pixel
+decoder / decoder / post split and the deformable-attention kernel's share.
+
+Every kernel's entry in the `kernels` line carries `bound_ms`, the least
+time the card could take for the timed call: the larger of its bytes (each
+input read once, each output written once) over 3.35 TB/s and its
+operations over the H100's dense peak for their type (989 TFLOP/s bf16, 67
+fp32); `bound_by` says which. `library_ms` times one PyTorch call that
+computes the same function where there is one
+(`F.scaled_dot_product_attention` for the attention forward and its
+autograd backward), else null; the port itself never calls it.
 """
 
 from __future__ import annotations
@@ -69,6 +86,16 @@ TOL_SCORES = 1e-3
 # order flips some of those roundings)
 TOL_BWD_FP32 = 1e-4
 TOL_BWD_BF16 = 2e-2
+# segmentation expert, fp32 MaskFormer card (kernel) vs CPU (plain) at 480
+# px: semantic map rel L2; argmax ids must agree wherever the top-2 gap of
+# the CPU's semantic logits exceeds SEG_GAP
+TOL_SEG_REL_L2 = 1e-3
+SEG_GAP = 1e-4
+
+# the H100 SXM's published rates (NVIDIA data sheet): HBM bytes/s and dense
+# FLOP/s by operand type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -93,6 +120,21 @@ def card_info() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (None skipped)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def set_bound(entry, n_bytes: float, flops: float, dtype) -> None:
+    """entry['bound_ms'] / ['bound_by']: the larger of bytes over the HBM
+    rate and operations over the dense peak of `dtype`."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[str(dtype)[6:]] * 1e3
+    entry["bound_ms"] = max(by_bytes, by_ops)
+    entry["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device milliseconds per call, from CUDA events."""
     import torch
@@ -115,6 +157,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 def check_attention(results):
     import torch
+    import torch.nn.functional as F
     from prismer_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -152,6 +195,15 @@ def check_attention(results):
             packed["max_abs_err"] = max(packed["max_abs_err"], e_out)
             if dtype == torch.bfloat16 and name == "encoder":
                 packed["ms"], packed["plain_ms"] = ms, plain
+                set_bound(packed, nbytes(q, k, v, out, lse),
+                          4.0 * b * h * lq * lk * dh, dtype)
+                heads = [t.view(b, -1, h, dh).transpose(1, 2)
+                         for t in (q, k, v)]
+                packed["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(*heads))
+                log(f"    bound {packed['bound_ms']:.4f} ms "
+                    f"({packed['bound_by']}), F.scaled_dot_product_attention"
+                    f" {packed['library_ms']:.4f} ms")
 
     flash = results["flash_attention"]
     # decoder prefill self-attention: N = 8 * 3 beams, right-padded prompts
@@ -185,6 +237,17 @@ def check_attention(results):
             flash["max_abs_err"] = max(flash["max_abs_err"], e_out)
             if dtype == torch.bfloat16 and p_len == 4:
                 flash["ms"], flash["plain_ms"] = ms, plain
+                allowed = (mask[:, None, None, :].bool() & torch.ones(
+                    p_len, p_len, dtype=torch.bool, device=dev).tril())
+                pairs = allowed.sum().item() * h
+                set_bound(flash, nbytes(q, k, v, mask, out, lse),
+                          4.0 * pairs * dh, dtype)
+                flash["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=allowed))
+                log(f"    bound {flash['bound_ms']:.4f} ms "
+                    f"({flash['bound_by']}), F.scaled_dot_product_attention"
+                    f" {flash['library_ms']:.4f} ms")
 
 
 def _beam_case(rng, b, k, t, n_eos, n_neg, n_done):
@@ -240,9 +303,12 @@ def check_beam_update(results):
     entry["plain_ms"] = cuda_ms(lambda: beam_bookkeeping(
         *gpu, 10, 10.0, eos_token_id=2, pad_token_id=1), iters=100)
     entry["max_abs_err"] = 0.0
+    outs = beam_update(*gpu, 10, 10.0, eos_token_id=2, pad_token_id=1)
+    set_bound(entry, nbytes(*gpu, *outs), 0.0, torch.float32)
     log(f"  beam_update: {n_cases} cases at B in (8, 5), K=3, T=20 "
         f"bit-identical (tol: exact) kernel {entry['ms']:.4f} ms plain "
-        f"{entry['plain_ms']:.4f} ms")
+        f"{entry['plain_ms']:.4f} ms bound {entry['bound_ms']:.5f} ms "
+        f"(bytes)")
 
 
 # Prismer-BASE decoder shapes: D, heads, F, cross layers, max length, L
@@ -368,6 +434,17 @@ def check_fused_decode(results):
                         f"plain {plain:.4f} ms")
                     if b == 8:
                         entry["ms"], entry["plain_ms"] = ms, plain
+                        n, d = x["hidden0"].shape
+                        t_len, l_enc = BASE["t"], BASE["l_enc"]
+                        nlc = BASE["nlc"]
+                        flops = 2.0 * n * x["w_all"].numel() + 4.0 * n * d * (
+                            t_len * (nlc + 1) + l_enc * nlc)
+                        set_bound(entry, nbytes(
+                            x["hidden0"], x["w_all"], x["b_all"], x["self_k"],
+                            x["self_v"], x["key_mask"], x["cross_k"],
+                            x["cross_v"], fb, *got), flops, dtype)
+                        log(f"    bound {entry['bound_ms']:.4f} ms "
+                            f"({entry['bound_by']})")
         del case, x
         torch.cuda.empty_cache()
 
@@ -422,8 +499,12 @@ def check_lm_topk(results):
                     h, emb, bb, alive, False, **kw), iters=20)
                 entry["plain_ms"] = cuda_ms(lambda: lt.lm_topk_reference(
                     h, emb, bb, alive, False, **kw), iters=20)
+                outs = lt.lm_topk(h, emb, bb, alive, False, **kw)
+                set_bound(entry, nbytes(h, emb, bb, alive, *outs),
+                          2.0 * n * v * d, dtype)
                 log(f"    bf16 N={n}: kernel {entry['ms']:.4f} ms plain "
-                    f"{entry['plain_ms']:.4f} ms")
+                    f"{entry['plain_ms']:.4f} ms bound "
+                    f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
 
 
 def _bwd_errors(got, want, fp32: bool):
@@ -448,6 +529,7 @@ def check_flash_backward(results):
     """Kernels 6 and 7 against their plain versions at the train step's
     shapes, fp32 and bf16; two launches on the same inputs bit-identical."""
     import torch
+    import torch.nn.functional as F
     from prismer_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -515,6 +597,23 @@ def check_flash_backward(results):
             elif name == "trunk":
                 dq_e["ms"], dq_e["plain_ms"] = ms_dq, plain_dq
                 dkv_e["ms"], dkv_e["plain_ms"] = ms_dkv, plain_dkv
+                pairs = 1.0 * b * h * lq * lk * dh
+                ins = nbytes(q, k, v, dout, lse, delta)
+                set_bound(dq_e, ins + nbytes(got[0]), 6.0 * pairs, dtype)
+                set_bound(dkv_e, ins + nbytes(*got[1:]), 8.0 * pairs, dtype)
+                # SDPA's autograd backward (dq, dk, dv together), its
+                # forward excluded
+                leaves = [t.detach().view(b, -1, h, dh).transpose(1, 2)
+                          .requires_grad_() for t in (q, k, v)]
+                o_lib = F.scaled_dot_product_attention(*leaves)
+                d_lib = dout.view(b, -1, h, dh).transpose(1, 2)
+                lib = cuda_ms(lambda: torch.autograd.grad(
+                    o_lib, leaves, d_lib, retain_graph=True), iters=10)
+                dq_e["library_ms"] = dkv_e["library_ms"] = lib
+                log(f"    bound dq {dq_e['bound_ms']:.4f} ms, dk/dv "
+                    f"{dkv_e['bound_ms']:.4f} ms (operations); "
+                    f"F.scaled_dot_product_attention backward {lib:.4f} ms")
+                del leaves, o_lib
             del got, again, want
         torch.cuda.empty_cache()
 
@@ -579,6 +678,14 @@ def check_fused_ce(results):
             elif n == 116:
                 st_e["ms"], st_e["plain_ms"] = ms_st, plain_st
                 gr_e["ms"], gr_e["plain_ms"] = ms_gr, plain_gr
+                nvd = 2.0 * n * v * d
+                set_bound(st_e, nbytes(h, emb, bias, lab, *stats), nvd,
+                          dtype)
+                set_bound(gr_e, nbytes(h, emb, bias, lab, gv, lse, *grads),
+                          3 * nvd, dtype)
+                log(f"    bound stats {st_e['bound_ms']:.4f} ms "
+                    f"({st_e['bound_by']}), grads {gr_e['bound_ms']:.4f} ms "
+                    f"({gr_e['bound_by']})")
         torch.cuda.empty_cache()
 
 
@@ -772,10 +879,10 @@ def check_requests(reqs, outs, vocab):
 
 
 def profile_request(generate, req, label: str, card: str) -> None:
-    """torch.profiler over one request (or train step): wall ms,
-    device-busy ms (the sum of device op times, user annotations such as
-    the optimizer's range left out; one stream, so they do not overlap)
-    and device ops."""
+    """torch.profiler over one request (or train step, or forward): wall
+    ms, device-busy ms (the sum of device op times, user annotations such
+    as the optimizer's range left out; one stream, so they do not overlap)
+    and device ops. Returns (busy ms, {op name: (ms, count)})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -800,6 +907,7 @@ def profile_request(generate, req, label: str, card: str) -> None:
         f"({card})")
     for name, (t, c) in top:
         log(f"    {t:8.2f} ms {c:6d}x {name[:90]}")
+    return busy, by_name
 
 
 def split_request(model, req, label: str, card: str) -> None:
@@ -1166,6 +1274,247 @@ def phase_train(results, card: str, profile: bool):
 
 
 # ---------------------------------------------------------------------------
+# phases 9 and 10: the segmentation expert's label generation
+# ---------------------------------------------------------------------------
+
+# MaskFormer's deformable attention at 480 px: levels res5, res4, res3
+SEG_LEVELS = ((15, 15), (30, 30), (60, 60))
+SEG_HEADS, SEG_DIM, SEG_POINTS = 8, 32, 4
+SEG_RES = 480
+SEG_CLASSES = 133
+SEG_BATCH = 16
+SEG_IMAGES = 37          # batches of 16, 16 and 5
+SEG_SIZES = ((640, 480), (500, 375), (480, 640), (427, 640), (640, 427),
+             (333, 500))  # (W, H), COCO-like
+_SEG = {}
+
+
+def check_ms_deform_attn(results):
+    """Kernel 10 against its plain version at the pixel decoder's shapes,
+    N = 16 (the generator's batch) and 1, locations drawn from
+    [-0.15, 1.15] so that corners fall outside the maps; two launches
+    bit-identical."""
+    import torch
+    from prismer_tpu_torch.experts.ops.deform_attn import (
+        ms_deform_attn, ms_deform_attn_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    entry = results["ms_deform_attn"]
+    s = sum(h * w for h, w in SEG_LEVELS)
+    nl, hd, d, p = len(SEG_LEVELS), SEG_HEADS, SEG_DIM, SEG_POINTS
+    for n in (SEG_BATCH, 1):
+        value = torch.randn(n, s, hd, d, generator=gen, device="cuda")
+        loc = torch.rand(n, s, hd, nl, p, 2, generator=gen,
+                         device="cuda") * 1.3 - 0.15
+        w = torch.softmax(torch.randn(n, s, hd, nl * p, generator=gen,
+                                      device="cuda"), -1).reshape(
+            n, s, hd, nl, p)
+        args = (value, SEG_LEVELS, loc, w)
+        got, again = ms_deform_attn(*args), ms_deform_attn(*args)
+        want = ms_deform_attn_reference(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        repeat = torch.equal(got, again)
+        finite = bool(torch.isfinite(got).all())
+        outside = ((loc < 0) | (loc > 1)).any(-1).float().mean().item()
+        ms = cuda_ms(lambda: ms_deform_attn(*args), iters=20)
+        plain = cuda_ms(lambda: ms_deform_attn_reference(*args), iters=5)
+        bound = {}
+        set_bound(bound, nbytes(value, loc, w, got),
+                  2.0 * n * s * hd * nl * p * 4 * d, torch.float32)
+        log(f"  ms_deform_attn N={n} S=Lq={s} H={hd} D={d} L={nl} P={p} "
+            f"fp32 ({outside:.2f} of the points outside [0, 1]): max|err| "
+            f"{err:.3g} (tol {TOL_FP32}), repeat bit-identical {repeat}, "
+            f"finite {finite}; kernel {ms:.4f} ms plain {plain:.4f} ms bound "
+            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        expect(err <= TOL_FP32 and repeat and finite,
+               f"ms_deform_attn N={n} out of tolerance")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if n == SEG_BATCH:
+            entry.update(ms=ms, plain_ms=plain, **bound)
+        del value, loc, w, got, again, want
+    torch.cuda.empty_cache()
+
+
+def seg_image(rng, size):
+    """A synthetic uint8 RGB photo-like image (W, H) = size: smooth colour
+    ramps, a few flat regions and noise."""
+    import numpy as np
+    w, h = size
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([xx / w * 255, yy / h * 255, (xx + yy) / (w + h) * 255],
+                   -1)
+    for _ in range(4):
+        x0, y0 = rng.integers(0, w // 2), rng.integers(0, h // 2)
+        img[y0:y0 + h // 3, x0:x0 + w // 3] = rng.integers(0, 256, 3)
+    img += rng.normal(0, 12, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def seg_input(count: int, seed: int):
+    """(count, 480, 480, 3) fp32 batch preprocessed as the generator does."""
+    import numpy as np
+    import torch
+    from prismer_tpu_torch.experts.model_bank import (SEG_MEAN, SEG_STD,
+                                                      resize_norm)
+    rng = np.random.default_rng(seed)
+    pre = resize_norm(SEG_RES, SEG_MEAN, SEG_STD)
+    return torch.from_numpy(np.stack([
+        pre(seg_image(rng, SEG_SIZES[i % len(SEG_SIZES)]))
+        for i in range(count)]))
+
+
+def phase_segment_parity(results):
+    """fp32 MaskFormer (Swin-L, num_classes 133) at 480 px, batch 1: card
+    (kernel 10) against the CPU (plain version), same seeded weights and
+    image."""
+    import copy
+
+    import torch
+    from prismer_tpu_torch.experts.segmentation.mask2former import \
+        build_random_maskformer
+
+    t0 = time.perf_counter()
+    cpu = build_random_maskformer(SEED, "cpu", num_classes=SEG_CLASSES)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    log(f"  built the fp32 MaskFormer in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in cpu.parameters()) / 1e6:.1f} M params)")
+    x = seg_input(1, SEED + 10)
+    outs = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = model(x.to(dev))
+        outs[name] = out.cpu()
+        log(f"  {name}: forward at batch 1 in "
+            f"{time.perf_counter() - t0:.2f} s, semantic {tuple(out.shape)}")
+    want, got = outs["cpu"], outs["cuda"]
+    rel = rel_l2(got, want)
+    top2 = want.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > SEG_GAP
+    differ = (got.argmax(1) != want.argmax(1)) & clear
+    log(f"  fp32 card vs CPU: semantic rel L2 {rel:.3g} (tol "
+        f"{TOL_SEG_REL_L2}); {int((~clear).sum())} of {clear.numel()} pixels "
+        f"have a top-2 gap <= {SEG_GAP}; argmax differs at "
+        f"{int(differ.sum())} pixels above it (tol 0)")
+    expect(tuple(got.shape) == (1, SEG_CLASSES, SEG_RES // 4, SEG_RES // 4),
+           f"semantic shape {tuple(got.shape)}")
+    expect(bool(torch.isfinite(got).all()), "semantic logits not finite")
+    expect(rel <= TOL_SEG_REL_L2, "segmentation card vs CPU out of "
+           "tolerance")
+    expect(not differ.any(), "argmax differs above the near-tie gap")
+    _SEG["model"] = gpu
+    del cpu, outs
+
+
+def split_segment(model, x, card: str) -> None:
+    """CUDA-event ms of one forward's backbone, pixel decoder, decoder and
+    post (semantic logits + argmax)."""
+    import torch
+    from prismer_tpu_torch.experts.segmentation.mask2former import \
+        semantic_logits
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    with torch.no_grad():
+        ev[0].record()
+        feats = model.backbone(x)
+        ev[1].record()
+        mask_features, ms = model.pixel_decoder(feats)
+        ev[2].record()
+        classes, masks = model.predictor(ms, mask_features)
+        ev[3].record()
+        semantic_logits(classes, masks).argmax(dim=1)
+        ev[4].record()
+    torch.cuda.synchronize()
+    parts = ("backbone", "pixel decoder", "decoder", "post")
+    log(f"  split segmentation forward, batch {x.shape[0]}: " + ", ".join(
+        f"{p} {ev[i].elapsed_time(ev[i + 1]):.1f} ms"
+        for i, p in enumerate(parts)) + f" ({card})")
+
+
+def phase_segment(results, card: str, profile: bool):
+    """The generator's entry point on the card over 37 synthetic PNGs of
+    mixed sizes at batch 16: kernel 10 launches 6 x 3 times, every label
+    map has its image's size and ids < 133; then the batch-16 forward's
+    time."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from prismer_tpu_torch.data import png
+    from prismer_tpu_torch.experts import generate
+    from prismer_tpu_torch.experts.ops.deform_attn import ms_deform_attn
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="segment_", dir=ROOT / "build"))
+    try:
+        rng = np.random.default_rng(SEED + 11)
+        sizes = {}
+        for i in range(SEG_IMAGES):
+            folder = tmp / "data" / f"images{i % 2}"
+            folder.mkdir(parents=True, exist_ok=True)
+            size = SEG_SIZES[i % len(SEG_SIZES)]
+            png.write_png(str(folder / f"{i:03d}.png"), seg_image(rng, size))
+            sizes[f"{folder.name}/{i:03d}.png"] = size
+        for fn in wrappers().values():
+            fn.launches = 0
+        out_buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out_buf):
+            rc = generate.main(["--task", "seg_coco", "--data_path",
+                                str(tmp / "data"), "--save_path",
+                                str(tmp / "labels"), "--batch_size",
+                                str(SEG_BATCH)])
+        total = time.perf_counter() - t0
+        results["ms_deform_attn"]["launches"] = ms_deform_attn.launches
+        lines = out_buf.getvalue().splitlines()
+        for line in lines:
+            log(f"  {line}")
+        # the generator's last progress line: "[task] n/n (seconds s)"
+        loop_s = float(lines[-1].rsplit("(", 1)[1].split(" ")[0])
+        expect(rc == 0, f"generate.main returned {rc}")
+        expect(ms_deform_attn.launches == 18, f"ms_deform_attn launched "
+               f"{ms_deform_attn.launches} times, want 6 layers x 3 batches")
+        for rel, (w, h) in sizes.items():
+            out = tmp / "labels" / "seg_coco" / "data" / rel
+            expect(out.exists(), f"no label for {rel}")
+            ids = png.read_png(str(out))
+            expect(ids.shape == (h, w) and int(ids.max()) < SEG_CLASSES,
+                   f"label {rel}: shape {ids.shape}, max id {ids.max()}")
+        log(f"  {SEG_IMAGES} label PNGs at their images' sizes, ids < "
+            f"{SEG_CLASSES}; ms_deform_attn launches "
+            f"{ms_deform_attn.launches}; main() {total:.1f} s in all (random "
+            f"model build included), labelling loop {loop_s:.2f} s = "
+            f"{SEG_IMAGES / loop_s:.1f} images/s wall-clock with PNG IO "
+            f"({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    model = _SEG["model"]
+    x = seg_input(SEG_BATCH, SEED + 12).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: model(x), iters=3, warmup=1)
+    log(f"  batch-16 forward (fp32, 480 px) after one warm-up: {ms:.1f} ms, "
+        f"{SEG_BATCH * 1000.0 / ms:.1f} images/s through the device part; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB "
+        f"({card})")
+    if profile:
+        split_segment(model, x, card)
+        with torch.no_grad():
+            busy, by_name = profile_request(
+                lambda: model(x), (), "segmentation forward, batch 16", card)
+        k10 = sum(t for name, (t, _) in by_name.items()
+                  if "ms_deform_attn" in name)
+        log(f"  ms_deform_attn: {k10:.2f} ms of {busy:.1f} ms device time "
+            f"({k10 / busy:.3f})")
+    del _SEG["model"], model, x
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = (
     ("flash_attention_packed", "prismer_tpu_torch/csrc/flash_attention.cu",
@@ -1187,10 +1536,13 @@ KERNELS = (
      "prismer_tpu/ops/fused_ce.py:165"),
     ("ce_grads", "prismer_tpu_torch/csrc/fused_ce.cu",
      "prismer_tpu/ops/fused_ce.py:255"),
+    ("ms_deform_attn", "prismer_tpu_torch/csrc/ms_deform_attn.cu",
+     "prismer_tpu/experts/ops/deform_attn_pallas.py:138"),
 )
 
 
 def wrappers():
+    from prismer_tpu_torch.experts.ops import deform_attn as da
     from prismer_tpu_torch.ops import beam_update as bu
     from prismer_tpu_torch.ops import flash_attention as fa
     from prismer_tpu_torch.ops import fused_ce as fc
@@ -1204,14 +1556,16 @@ def wrappers():
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
             "ce_stats": fc.ce_stats,
-            "ce_grads": fc.ce_grads}
+            "ce_grads": fc.ce_grads,
+            "ms_deform_attn": da.ms_deform_attn}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="profile one batch-8 request on each decode "
-                        "path and one train step")
+                        "path, one train step and one batch-16 "
+                        "segmentation forward")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -1236,7 +1590,8 @@ def main(argv=None) -> int:
 
     results = {name: {"name": name, "route": "cuda", "source": src,
                       "replaces": rep, "launches": 0, "max_abs_err": 0.0,
-                      "ms": None, "plain_ms": None}
+                      "ms": None, "plain_ms": None, "bound_ms": None,
+                      "bound_by": None, "library_ms": None}
                for name, src, rep in KERNELS}
     phases = (("build", phase_build), ("kernels", phase_kernels),
               ("slice parity", phase_slice_parity),
@@ -1245,7 +1600,9 @@ def main(argv=None) -> int:
               ("serve fused off",
                lambda r: phase_serve_per_layer(r, card, args.profile)),
               ("train parity", phase_train_parity),
-              ("train", lambda r: phase_train(r, card, args.profile)))
+              ("train", lambda r: phase_train(r, card, args.profile)),
+              ("segment parity", phase_segment_parity),
+              ("segment", lambda r: phase_segment(r, card, args.profile)))
     for name, fn in phases:
         log(f"phase {name}")
         t0 = time.perf_counter()
@@ -1279,6 +1636,7 @@ def phase_kernels(results):
     check_lm_topk(results)
     check_flash_backward(results)
     check_fused_ce(results)
+    check_ms_deform_attn(results)
 
 
 if __name__ == "__main__":

@@ -121,8 +121,8 @@ class Dense(nn.Linear):
     """nn.Linear in the compute dtype that casts its input to that dtype."""
 
     def __init__(self, in_features: int, out_features: int, dtype,
-                 device=None):
-        super().__init__(in_features, out_features, device=device,
+                 device=None, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias, device=device,
                          dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -130,12 +130,13 @@ class Dense(nn.Linear):
 
 
 class Conv(nn.Conv2d):
-    """Bias-free nn.Conv2d in the compute dtype on NHWC tensors."""
+    """nn.Conv2d in the compute dtype on NHWC tensors, bias-free unless
+    asked for."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int,
-                 padding: int, dtype, device=None):
+                 padding: int, dtype, device=None, bias: bool = False):
         super().__init__(in_ch, out_ch, kernel, stride=stride,
-                         padding=padding, bias=False, device=device,
+                         padding=padding, bias=bias, device=device,
                          dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

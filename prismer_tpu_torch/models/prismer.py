@@ -193,9 +193,10 @@ def random_masters(model: Prismer, seed: int) -> Dict[str, torch.Tensor]:
 
 
 def build_random_prismer(cfg: PrismerConfig, seed: int,
-                         device: torch.device | str = "cpu") -> Prismer:
-    """A Prismer on `device` with weights drawn from `seed` (no default
-    initialisation runs: the module is built on the meta device first)."""
+                         device: torch.device | str = "cuda") -> Prismer:
+    """A Prismer on `device` (the card unless the caller names the CPU)
+    with weights drawn from `seed` (no default initialisation runs: the
+    module is built on the meta device first)."""
     model = Prismer(cfg, device="meta").to_empty(device=device)
     init_random_(model, seed)
     return model.eval()

@@ -1,0 +1,275 @@
+"""The segmentation label generator of the PyTorch port
+(prismer_tpu_torch.experts.generate) and its host-side pieces against the
+JAX package and PIL on the CPU.
+
+Both generators run over the same folder of PIL-written PNGs with both
+`load_expert_model`s replaced by the same tiny Mask2Former weights; the
+label PNGs must hold the same ids except at pixels whose low-resolution
+source is a near tie (top-2 gap of JAX's semantic logits <= 1e-4), which
+are counted. The PNG codec, the preprocess (PIL's BILINEAR resize, / 255,
+pixel statistics) and the NEAREST resize of the id maps are held to PIL
+bit for bit.
+"""
+
+import argparse
+import io
+import os
+import struct
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from prismer_tpu.experts import generate as jax_generate
+from prismer_tpu.experts import model_bank as jax_bank
+from prismer_tpu_torch.convert.from_jax import load_jax_variables
+from prismer_tpu_torch.data import pil_warp, png
+from prismer_tpu_torch.experts import generate as port_generate
+from prismer_tpu_torch.experts import model_bank as port_bank
+from prismer_tpu_torch.experts.segmentation import mask2former as pm
+
+from test_torch_segmentation import TINY, TinyMaskFormer, seeded
+
+torch.set_num_threads(2)
+
+RES = 80
+GAP = 1e-4
+# (folder, name, PIL mode, (W, H)): grey, RGB and RGBA, up- and downscaled
+IMAGES = [("a", "0.png", "RGB", (97, 61)), ("a", "1.png", "L", (64, 80)),
+          ("a", "2.png", "RGBA", (50, 50)), ("b", "3.png", "RGB", (120, 90)),
+          ("b", "4.png", "RGB", (33, 47))]
+
+
+def _image(rng, mode, size):
+    w, h = size
+    ch = {"L": 1, "RGB": 3, "RGBA": 4}[mode]
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = (xx * 255 // max(w - 1, 1) + yy * 97 // max(h - 1, 1))[..., None]
+    img = (base + rng.integers(0, 60, (h, w, ch))) % 256
+    return img.astype(np.uint8)[..., 0] if ch == 1 else img.astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def image_root(tmp_path_factory):
+    root = tmp_path_factory.mktemp("images")
+    rng = np.random.default_rng(0)
+    for folder, name, mode, size in IMAGES:
+        os.makedirs(root / "data" / folder, exist_ok=True)
+        Image.fromarray(_image(rng, mode, size), mode).save(
+            root / "data" / folder / name)
+    return root
+
+
+def _args(root, out):
+    return argparse.Namespace(data_path=str(root / "data"),
+                              save_path=str(out), batch_size=3,
+                              image_size=RES, shard_id=0, num_shards=1,
+                              device="cpu")
+
+
+def test_segmentation_labels_match_jax_generator(image_root, tmp_path,
+                                                 monkeypatch):
+    model = TinyMaskFormer(TINY)
+    shapes = jax.eval_shape(model.init, jax.random.key(0),
+                            jnp.zeros((1, RES, RES, 3)))
+    variables = seeded(shapes, 11)
+    jax_sems = []
+
+    @jax.jit
+    def apply(v, x):
+        return model.apply(v, x)
+
+    def jax_apply(v, x):
+        out = apply(v, x)
+        jax_sems.append(np.asarray(out))
+        return out
+
+    monkeypatch.setattr(jax_generate, "load_expert_model",
+                        lambda task, image_size: (
+                            jax_apply, jax.tree.map(jnp.asarray, variables),
+                            jax_bank._resize_norm(image_size,
+                                                  port_bank.SEG_MEAN,
+                                                  port_bank.SEG_STD)))
+    port = pm.MaskFormer(device="cpu", **TINY).eval()
+    load_jax_variables(port, variables)
+    monkeypatch.setattr(port_generate, "load_expert_model",
+                        lambda task, image_size, device: (
+                            port, port_bank.resize_norm(
+                                image_size, port_bank.SEG_MEAN,
+                                port_bank.SEG_STD)))
+    args = _args(image_root, tmp_path / "jax")
+    jax_generate.run_segmentation(args, "seg_coco")
+    port_generate.run_segmentation(_args(image_root, tmp_path / "port"),
+                                   "seg_coco")
+
+    sem = np.concatenate(jax_sems)
+    top2 = np.sort(sem, axis=1)[:, -2:]
+    tie = (top2[:, 1] - top2[:, 0]) <= GAP          # (N, RES/4, RES/4)
+    near_ties = 0
+    for k, (folder, name, _, size) in enumerate(IMAGES):
+        rel = os.path.join("seg_coco", "data", folder, name)
+        want = np.asarray(Image.open(tmp_path / "jax" / rel))
+        got = png.read_png(str(tmp_path / "port" / rel))
+        assert got.shape == want.shape == size[::-1] and got.dtype == np.uint8
+        src_tie = pil_warp.resize_nearest_u8(tie[k].astype(np.uint8), size)
+        near_ties += int(src_tie.sum())
+        differ = got != want
+        assert not (differ & (src_tie == 0)).any(), (name, differ.sum())
+    print(f"label pixels over near ties: {near_ties}")
+    assert near_ties < 0.05 * sum(w * h for *_, (w, h) in IMAGES)
+
+
+@pytest.mark.parametrize("mode,shape", [("L", (23, 31)), ("RGB", (17, 9, 3)),
+                                        ("RGBA", (8, 40, 4))])
+def test_png_round_trip_and_pil_reads_it(mode, shape):
+    img = np.random.default_rng(1).integers(0, 256, shape).astype(np.uint8)
+    data = png.encode_png(img)
+    np.testing.assert_array_equal(png.decode_png(data), img)
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data))),
+                                  img)
+
+
+def _filter_row(kind, row, prior, bpp):
+    """PNG row filter (spec section 9) applied to one row of bytes."""
+    row, prior = row.astype(np.int64), prior.astype(np.int64)
+    left = np.concatenate([np.zeros(bpp, np.int64), row[:-bpp]])
+    upleft = np.concatenate([np.zeros(bpp, np.int64), prior[:-bpp]])
+    if kind == 0:
+        pred = np.zeros_like(row)
+    elif kind == 1:
+        pred = left
+    elif kind == 2:
+        pred = prior
+    elif kind == 3:
+        pred = (left + prior) // 2
+    else:
+        p = left + prior - upleft
+        pa, pb, pc = abs(p - left), abs(p - prior), abs(p - upleft)
+        pred = np.where((pa <= pb) & (pa <= pc), left,
+                        np.where(pb <= pc, prior, upleft))
+    return ((row - pred) % 256).astype(np.uint8)
+
+
+@pytest.mark.parametrize("mode,ch,color", [("L", 1, 0), ("RGB", 3, 2),
+                                           ("RGBA", 4, 6)])
+def test_png_decodes_all_five_filter_types_as_pil_does(mode, ch, color):
+    h, w = 15, 13
+    img = np.random.default_rng(2).integers(0, 256, (h, w * ch)).astype(
+        np.uint8)
+    rows, prior = [], np.zeros(w * ch, np.uint8)
+    for y in range(h):
+        kind = y % 5
+        rows.append(bytes([kind]) + _filter_row(kind, img[y], prior,
+                                                 ch).tobytes())
+        prior = img[y]
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    data = (png.SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+            + chunk(b"IEND", b""))
+    want = np.asarray(Image.open(io.BytesIO(data)).convert(mode))
+    np.testing.assert_array_equal(want.reshape(h, w * ch), img)
+    np.testing.assert_array_equal(png.decode_png(data), want)
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB", "RGBA"])
+def test_png_decodes_pil_adaptive_filters(mode, tmp_path):
+    img = _image(np.random.default_rng(3), mode, (70, 45))
+    Image.fromarray(img, mode).save(tmp_path / "x.png")
+    np.testing.assert_array_equal(png.read_png(str(tmp_path / "x.png")), img)
+
+
+def test_png_refuses_what_it_does_not_read(tmp_path):
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((4, 4), np.uint8), "L").convert("P").save(
+        buf, format="PNG")
+    with pytest.raises(ValueError, match="colour type 3"):
+        png.decode_png(buf.getvalue())
+    data = bytearray(png.encode_png(np.zeros((4, 4), np.uint8)))
+    data[40] ^= 1
+    with pytest.raises(ValueError, match="CRC"):
+        png.decode_png(bytes(data))
+
+
+@pytest.mark.parametrize("mode,size", [("RGB", (640, 480)), ("RGB", (500, 375)),
+                                       ("RGB", (480, 640)), ("L", (333, 500)),
+                                       ("RGBA", (200, 150)),
+                                       ("RGB", (480, 480))])
+def test_preprocess_equals_jax_resize_norm(mode, size):
+    """Bit-exact: PIL's fixed-point BILINEAR resize (antialiased when
+    shrinking) replicated in numpy, then / 255 and the pixel statistics."""
+    img = _image(np.random.default_rng(4), mode, size)
+    want = jax_bank._resize_norm(480, port_bank.SEG_MEAN, port_bank.SEG_STD)(
+        Image.fromarray(img, mode))
+    got = port_bank.resize_norm(480, port_bank.SEG_MEAN,
+                                port_bank.SEG_STD)(img)
+    assert got.dtype == np.float32 and got.shape == (480, 480, 3)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("src,dst", [((120, 120), (640, 480)),
+                                     ((120, 120), (500, 375)),
+                                     ((120, 120), (480, 640)),
+                                     ((20, 20), (97, 61)),
+                                     ((37, 53), (13, 29))])
+def test_nearest_resize_equals_pil(src, dst):
+    ids = np.random.default_rng(5).integers(0, 133, src).astype(np.uint8)
+    want = np.asarray(Image.fromarray(ids, "L").resize(dst, Image.NEAREST))
+    np.testing.assert_array_equal(pil_warp.resize_nearest_u8(ids, dst), want)
+
+
+def test_jpeg_input_raises(tmp_path, monkeypatch):
+    os.makedirs(tmp_path / "data" / "a")
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(
+        tmp_path / "data" / "a" / "x.jpg")
+    monkeypatch.setattr(port_generate, "load_expert_model",
+                        lambda task, image_size, device: (None, None))
+    with pytest.raises(NotImplementedError, match="JPEG"):
+        port_generate.run_segmentation(_args(tmp_path, tmp_path / "out"),
+                                       "seg_coco")
+    assert not (tmp_path / "out" / "seg_coco").exists()
+
+
+def test_main_runs_on_the_cpu_when_asked(image_root, tmp_path, monkeypatch):
+    port = pm.MaskFormer(device="cpu", **TINY).eval()
+    load_jax_variables(port, seeded(jax.eval_shape(
+        TinyMaskFormer(TINY).init, jax.random.key(0),
+        jnp.zeros((1, RES, RES, 3))), 12))
+    seen = {}
+
+    def load(task, image_size, device):
+        seen.update(task=task, image_size=image_size, device=str(device))
+        return port, port_bank.resize_norm(image_size, port_bank.SEG_MEAN,
+                                           port_bank.SEG_STD)
+
+    monkeypatch.setattr(port_generate, "load_expert_model", load)
+    config = tmp_path / "cfg.yaml"
+    config.write_text(f"data_path: {image_root / 'data'}\n"
+                      f"save_path: '{tmp_path / 'out'}'  # labels\n")
+    assert port_generate.main(["--task", "seg_ade", "--config", str(config),
+                               "--image_size", str(RES), "--batch_size", "2",
+                               "--shard_id", "1", "--num_shards", "2",
+                               "--device", "cpu"]) == 0
+    assert seen == dict(task="seg_ade", image_size=RES, device="cpu")
+    written = sorted(os.path.relpath(os.path.join(d, f), tmp_path / "out")
+                     for d, _, fs in os.walk(tmp_path / "out") for f in fs)
+    assert written == ["seg_ade/data/a/1.png", "seg_ade/data/b/3.png"]
+
+
+def test_main_refuses_the_card_when_there_is_none(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit):
+        port_generate.main(["--task", "seg_coco", "--data_path",
+                            str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        port_generate.main(["--task", "depth", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        port_bank.load_expert_model("depth", 64, "cpu")

@@ -33,8 +33,10 @@ BLOCKED = ("jax", "flax", "optax", "orbax", "yaml", "regex", "PIL")
 
 
 def test_package_imports_without_jax_flax_yaml_regex_pil():
-    """Every module (train/ and ops/fused_ce among them) imports with jax,
-    flax, optax, orbax, yaml, regex and PIL unimportable."""
+    """Every module (train/, ops/fused_ce and the segmentation expert's
+    experts/, convert/experts, data/png and data/pil_warp among them)
+    imports with jax, flax, optax, orbax, yaml, regex and PIL
+    unimportable."""
     code = "\n".join([
         "import sys, importlib, pkgutil",
         f"for m in {BLOCKED!r}:",
@@ -46,7 +48,7 @@ def test_package_imports_without_jax_flax_yaml_regex_pil():
         "    importlib.import_module(name)",
         "bad = [m for m in sys.modules if m.split('.')[0] == 'prismer_tpu']",
         "assert not bad, bad",
-        "assert len(names) >= 22, names",
+        "assert len(names) >= 33, names",
         "assert {'prismer_tpu_torch.ops.fused_decode',",
         "        'prismer_tpu_torch.ops.lm_topk',",
         "        'prismer_tpu_torch.ops.fused_ce',",
@@ -55,7 +57,18 @@ def test_package_imports_without_jax_flax_yaml_regex_pil():
         "        'prismer_tpu_torch.train.optim',",
         "        'prismer_tpu_torch.train.schedules',",
         "        'prismer_tpu_torch.train.checkpoint',",
-        "        'prismer_tpu_torch.train.metrics'} <= set(names), names",
+        "        'prismer_tpu_torch.train.metrics',",
+        "        'prismer_tpu_torch.experts',",
+        "        'prismer_tpu_torch.experts.ops',",
+        "        'prismer_tpu_torch.experts.ops.deform_attn',",
+        "        'prismer_tpu_torch.experts.segmentation',",
+        "        'prismer_tpu_torch.experts.segmentation.swin',",
+        "        'prismer_tpu_torch.experts.segmentation.mask2former',",
+        "        'prismer_tpu_torch.experts.model_bank',",
+        "        'prismer_tpu_torch.experts.generate',",
+        "        'prismer_tpu_torch.convert.experts',",
+        "        'prismer_tpu_torch.data.png',",
+        "        'prismer_tpu_torch.data.pil_warp'} <= set(names), names",
         "print(len(names))",
     ])
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -94,7 +107,7 @@ def _as_jax_tree(model):
 
 
 def test_converter_round_trip_and_strictness():
-    src = build_random_prismer(_tiny_port().cfg, seed=3)
+    src = build_random_prismer(_tiny_port().cfg, seed=3, device="cpu")
     tree = _as_jax_tree(src)
     dst = _tiny_port()
     load_jax_variables(dst, tree)
@@ -135,9 +148,10 @@ def test_config_equals_jax_field_by_field(model):
 
 def test_random_init_reproducible_across_dtypes():
     cfg32 = _tiny_port().cfg
-    a = build_random_prismer(cfg32, seed=5).state_dict()
+    a = build_random_prismer(cfg32, seed=5, device="cpu").state_dict()
     b = init_random_(_tiny_port(), 5).state_dict()
-    bf = build_random_prismer(_tiny_port("bfloat16").cfg, seed=5)
+    bf = build_random_prismer(_tiny_port("bfloat16").cfg, seed=5,
+                              device="cpu")
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0, msg=k)
         want = a[k].to(bf.state_dict()[k].dtype)
@@ -157,7 +171,8 @@ def test_sentinels_match_jax():
 def test_bf16_logits_accumulate_in_fp32():
     """The LM head takes bf16 operands and returns fp32 logits that are the
     fp32 sum of exact bf16 products, not bf16-rounded values."""
-    model = build_random_prismer(_tiny_port("bfloat16").cfg, seed=1)
+    model = build_random_prismer(_tiny_port("bfloat16").cfg, seed=1,
+                                 device="cpu")
     head = model.text_decoder.lm_head
     emb = model.text_decoder.embeddings.word_embeddings
     h = torch.randn(3, 1, 64, generator=torch.Generator().manual_seed(0))
@@ -183,6 +198,16 @@ def test_dense_and_layer_norm_dtype_islands():
     torch.testing.assert_close(out, want, rtol=0, atol=0)
 
 
+def test_package_never_calls_sdpa():
+    """PyTorch's fused attention is a yardstick that chip_smoke.py times
+    beside the port's kernels, never a path of the port."""
+    pkg = ROOT / "prismer_tpu_torch"
+    hits = [str(p.relative_to(ROOT)) for p in sorted(pkg.rglob("*"))
+            if p.suffix in (".py", ".cu", ".cuh")
+            and "scaled_dot_product_attention" in p.read_text()]
+    assert not hits, hits
+
+
 def test_smoke_run_turns_tf32_off():
     src = (ROOT / "chip_smoke.py").read_text()
     assert "torch.backends.cuda.matmul.allow_tf32 = False" in src
@@ -191,7 +216,7 @@ def test_smoke_run_turns_tf32_off():
 
 KERNEL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
                   "beam_update.cu", "fused_decode.cu", "lm_topk.cu",
-                  "fused_ce.cu", "common.cuh")
+                  "fused_ce.cu", "ms_deform_attn.cu", "common.cuh")
 
 
 def test_kernel_library_named_by_source_hash():

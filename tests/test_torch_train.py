@@ -375,7 +375,7 @@ def test_bf16_update_matches_jax_fp32_params(kernels_plain, monkeypatch):
 
 def test_train_state_needs_masters_for_low_precision_leaves():
     cfg = port_config.build_prismer_config(task("bfloat16"))
-    model = port_prismer.build_random_prismer(cfg, 0)
+    model = port_prismer.build_random_prismer(cfg, 0, device="cpu")
     sched = port_schedules.per_step_cosine(LR, 0.0, 10, 1)
     with pytest.raises(ValueError, match="masters"):
         PortTrainState.create(model, sched, WD, "freeze_vision")
@@ -463,7 +463,7 @@ def test_checkpoint_restore_continue_equals_uninterrupted(tmp_path):
     batch = port_batch(caption_batch(3))
 
     def fresh():
-        model = port_prismer.build_random_prismer(cfg, 4)
+        model = port_prismer.build_random_prismer(cfg, 4, device="cpu")
         sched = port_schedules.per_step_cosine(LR, 0.0, 10, 1)
         return PortTrainState.create(model, sched, WD, "freeze_vision",
                                      port_prismer.random_masters(model, 4),
@@ -597,7 +597,7 @@ def _dropout_model(seed=0):
     cfg = port_config.build_prismer_config(task("float32"))
     cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
         cfg.decoder, hidden_dropout_prob=0.1))
-    return port_prismer.build_random_prismer(cfg, seed)
+    return port_prismer.build_random_prismer(cfg, seed, device="cpu")
 
 
 def _grads_with_dropout(model, batch, seed):

@@ -8,8 +8,12 @@ fine-tune paths give it, checks the fp32 model on the card against the same
 model on the CPU and the fp32 fused decode path against the per-layer path,
 then serves captioning requests through `build_generate_fn` in bf16, fused
 decode on (the default on CUDA) and then off, and checks that the fused
-requests went through every serving kernel. Then the caption fine-tune
-step: one fp32 train step on the card against the CPU, and ten bf16 AdamW
+requests went through every serving kernel. Then the encoder's fused
+LayerNorm path (`models.layers.set_ln_proj(True)`, off by default as in
+JAX): the fp32 encode at batch 2 on the card against the CPU, and the bf16
+requests again with the flag on, each of which must launch `ln_proj` 24
+times and `adaptor_fused` 12 times (12 blocks), timed beside the flag off.
+Then the caption fine-tune step: one fp32 train step on the card against the CPU, and ten bf16 AdamW
 steps through `build_train_step` that must lower the loss, move every
 trainable leaf, keep every frozen one and launch every training kernel,
 timed at batch 4 and 16. Then the segmentation expert's label generation:
@@ -91,6 +95,21 @@ TOL_BWD_BF16 = 2e-2
 # the CPU's semantic logits exceeds SEG_GAP
 TOL_SEG_REL_L2 = 1e-3
 SEG_GAP = 1e-4
+# the encoder's LayerNorm kernels (13-15), kernel vs plain on the same
+# inputs: fp32 max abs over the reference's largest magnitude; bf16
+# elementwise |err| <= atol + 2e-2 |ref| with the atol of
+# tests/test_ln_proj.py (2e-2, the adaptor 3e-2): the two sides sum the
+# statistics and each product in another order, so a bf16 rounding of an
+# intermediate can flip by one ulp (2^-8 to 2^-7 relative). The adaptor's
+# residual add x + u can cancel, so its relative part is taken of
+# |x| + |ref| (>= |u|): a one-ulp flip of u then stays within it
+TOL_LN_BF16_REL = 2e-2
+TOL_LN_BF16_ABS = {"fused_layer_norm": 2e-2, "ln_proj": 2e-2,
+                   "adaptor_fused": 3e-2}
+# fp32 Prismer-BASE encode with set_ln_proj(True), card vs CPU (rel L2)
+TOL_LNPROJ_ENCODE = 1e-4
+ENC_ROWS, ENC_DIM = 8 * 964, 768    # the encoder's rows at batch 8
+LN_PROJ_PER_ENCODE = {"ln_proj": 24, "adaptor_fused": 12}   # 12 blocks
 
 # the H100 SXM's published rates (NVIDIA data sheet): HBM bytes/s and dense
 # FLOP/s by operand type
@@ -148,6 +167,34 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call from CUDA events around one replay
+    of a CUDA graph of `iters` calls: the device's time without the host's
+    dispatch of each call, which is longer than a few-microsecond kernel."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
     return start.elapsed_time(end) / iters
 
 
@@ -689,6 +736,208 @@ def check_fused_ce(results):
         torch.cuda.empty_cache()
 
 
+def _ln_errors(got, want, name: str, fp32: bool, mag=None):
+    """(max abs error, within tolerance): fp32 against TOL_FP32 times the
+    reference's largest magnitude, bf16 elementwise within
+    TOL_LN_BF16_ABS[name] + TOL_LN_BF16_REL * mag (default |ref|)."""
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    if fp32:
+        ok = err.max().item() <= TOL_FP32 * w.abs().max().item()
+    else:
+        mag = w.abs() if mag is None else mag
+        ok = bool((err <= TOL_LN_BF16_ABS[name]
+                   + TOL_LN_BF16_REL * mag).all())
+    return err.max().item(), ok
+
+
+def _ln_case(gen, rows: int, dim: int):
+    """Encoder-like rows (mean ~1, spread ~3) and an fp32 LN affine near
+    the identity, on the card."""
+    import torch
+    x = torch.randn(rows, dim, generator=gen, device="cuda") * 3 + 1
+    scale = 1 + 0.1 * torch.randn(dim, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(dim, generator=gen, device="cuda")
+    return x, scale, bias
+
+
+def _dense(gen, rows: int, cols: int):
+    """An nn.Linear weight (rows, cols) scaled like lecun-normal, and a
+    bias, fp32 on the card."""
+    import torch
+    w = torch.randn(rows, cols, generator=gen, device="cuda") * cols ** -0.5
+    return w, 0.1 * torch.randn(rows, generator=gen, device="cuda")
+
+
+def _grad_check(name, kernel_fn, plain_fn, leaves):
+    """The autograd Function's fp32 gradients on the card (kernel forward,
+    plain recompute backward) against plain autograd, for the loss
+    sum(out^2): max abs over the reference's largest magnitude."""
+    import torch
+    grads = []
+    for fn in (kernel_fn, plain_fn):
+        ts = [t.detach().clone().requires_grad_() for t in leaves]
+        outs = fn(*ts)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        sum((o.float() ** 2).sum() for o in outs).backward()
+        grads.append([t.grad for t in ts])
+    errs = [_bwd_errors(g, w, True) for g, w in zip(*grads)]
+    log(f"    {name} fp32 gradients (Function vs plain autograd, "
+        f"{len(errs)} leaves): max err {max(errs):.3g} (max abs / max|ref|, "
+        f"tol {TOL_FP32})")
+    expect(max(errs) <= TOL_FP32, f"{name} fp32 gradient out of tolerance")
+
+
+def check_layer_norm(results):
+    """Kernel 13 against its plain version at the encoder's LayerNorm shape
+    (R = 8 x 964, D = 768), fp32 and bf16; two launches bit-identical; the
+    Function's fp32 gradient."""
+    import torch
+    import torch.nn.functional as F
+    from prismer_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    entry = results["fused_layer_norm"]
+    x32, scale, bias = _ln_case(gen, ENC_ROWS, ENC_DIM)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        fp32 = dtype == torch.float32
+        got = ln.fused_layer_norm(x, scale, bias)
+        again = ln.fused_layer_norm(x, scale, bias)
+        want = ln.fp32_layer_norm(x, scale, bias)
+        torch.cuda.synchronize()
+        err, ok = _ln_errors(got, want, "fused_layer_norm", fp32)
+        repeat = torch.equal(got, again)
+        finite = bool(torch.isfinite(got.float()).all())
+        ms = graph_ms(lambda: ln.fused_layer_norm(x, scale, bias))
+        plain = graph_ms(lambda: ln.fp32_layer_norm(x, scale, bias))
+        log(f"  fused_layer_norm R={ENC_ROWS} D={ENC_DIM} {str(dtype)[6:]}: "
+            f"max|err| {err:.3g}, within tolerance {ok}, repeat "
+            f"bit-identical {repeat}, finite {finite}; kernel {ms:.4f} ms "
+            f"plain {plain:.4f} ms (graph replay)")
+        expect(ok and repeat and finite,
+               f"fused_layer_norm {dtype} out of tolerance")
+        if fp32:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        else:
+            entry.update(ms=ms, plain_ms=plain)
+            set_bound(entry, nbytes(x, scale, bias, got),
+                      8.0 * ENC_ROWS * ENC_DIM, torch.float32)
+            sb, bb = scale.to(dtype), bias.to(dtype)
+            entry["library_ms"] = graph_ms(
+                lambda: F.layer_norm(x, (ENC_DIM,), sb, bb))
+            log(f"    bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}),"
+                f" F.layer_norm {entry['library_ms']:.4f} ms")
+    _grad_check("fused_layer_norm", ln.fused_layer_norm,
+                ln.fp32_layer_norm, (x32[:964], scale, bias))
+    torch.cuda.empty_cache()
+
+
+def check_ln_proj(results):
+    """Kernel 14 against its plain version at the encoder block's shapes,
+    R = 8 x 964, D = 768: q/k/v (3 x 768) and c_fc (3072) + quick_gelu,
+    fp32 and bf16; two launches bit-identical; the Function's fp32
+    gradient."""
+    import torch
+    from prismer_tpu_torch.ops import ln_proj as lp
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    entry = results["ln_proj"]
+    r, d = ENC_ROWS, ENC_DIM
+    x32, scale, bias = _ln_case(gen, r, d)
+    for label, fs, act in (("q/k/v", (d, d, d), None),
+                           ("c_fc", (4 * d,), "quick_gelu")):
+        w32, b32 = zip(*(_dense(gen, f, d) for f in fs))
+        for dtype in (torch.float32, torch.bfloat16):
+            fp32 = dtype == torch.float32
+            x = x32.to(dtype)
+            ws, bs = [w.to(dtype) for w in w32], [b.to(dtype) for b in b32]
+
+            def kernel():
+                return lp.ln_proj(x, scale, bias, ws, bs, act)
+
+            def plain():
+                return lp.ln_proj_reference(x, scale, bias, ws, bs, act)
+
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            errs = [_ln_errors(g, w, "ln_proj", fp32)
+                    for g, w in zip(got, want)]
+            err, ok = max(e for e, _ in errs), all(o for _, o in errs)
+            repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+            ms, plain_ms = graph_ms(kernel), graph_ms(plain, iters=5)
+            flops = 2.0 * r * d * sum(fs)
+            bound = {}
+            set_bound(bound, nbytes(x, scale, bias, *ws, *bs, *got), flops,
+                      dtype)
+            log(f"  ln_proj {label} R={r} D={d} F={'+'.join(map(str, fs))} "
+                f"{act} {str(dtype)[6:]}: max|err| {err:.3g}, within "
+                f"tolerance {ok}, repeat bit-identical {repeat}, finite "
+                f"{finite}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms (graph"
+                f" replay), bound {bound['bound_ms']:.4f} ms "
+                f"({bound['bound_by']}), {flops / ms / 1e9:.1f} TFLOP/s")
+            expect(ok and repeat and finite,
+                   f"ln_proj {label} {dtype} out of tolerance")
+            if fp32:
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            elif label == "q/k/v":
+                entry.update(ms=ms, plain_ms=plain_ms, **bound)
+            del got, again, want
+        if act is not None:
+            _grad_check("ln_proj c_fc", lambda x, s, b, w, bb: lp.ln_proj(
+                x, s, b, [w], [bb], act), lambda x, s, b, w, bb:
+                lp.ln_proj_reference(x, s, b, [w], [bb], act),
+                (x32[:964], scale, bias, w32[0], b32[0]))
+        torch.cuda.empty_cache()
+
+
+def check_adaptor_fused(results):
+    """Kernel 15 against its plain version at the encoder's shape, R = 8 x
+    964, D = 768, fp32 and bf16; two launches bit-identical; the Function's
+    fp32 gradient."""
+    import torch
+    from prismer_tpu_torch.ops import ln_proj as lp
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    entry = results["adaptor_fused"]
+    r, d = ENC_ROWS, ENC_DIM
+    x32, scale, bias = _ln_case(gen, r, d)
+    (wd32, bd32), (wu32, bu32) = _dense(gen, d, d), _dense(gen, d, d)
+    for dtype in (torch.float32, torch.bfloat16):
+        fp32 = dtype == torch.float32
+        args = [t.to(dtype) for t in (x32, scale, bias, wd32, bd32, wu32,
+                                      bu32)]
+        args[1:3] = scale, bias
+        got, again = lp.adaptor_fused(*args), lp.adaptor_fused(*args)
+        want = lp.adaptor_reference(*args)
+        torch.cuda.synchronize()
+        err, ok = _ln_errors(got, want, "adaptor_fused", fp32,
+                             args[0].double().abs() + want.double().abs())
+        repeat = torch.equal(got, again)
+        finite = bool(torch.isfinite(got.float()).all())
+        ms = graph_ms(lambda: lp.adaptor_fused(*args))
+        plain = graph_ms(lambda: lp.adaptor_reference(*args), iters=5)
+        flops = 4.0 * r * d * d
+        bound = {}
+        set_bound(bound, nbytes(*args, got), flops, dtype)
+        log(f"  adaptor_fused R={r} D={d} {str(dtype)[6:]}: max|err| "
+            f"{err:.3g}, within tolerance {ok}, repeat bit-identical "
+            f"{repeat}, finite {finite}; kernel {ms:.4f} ms plain "
+            f"{plain:.4f} ms (graph replay), bound {bound['bound_ms']:.4f} "
+            f"ms ({bound['bound_by']}), {flops / ms / 1e9:.1f} TFLOP/s")
+        expect(ok and repeat and finite,
+               f"adaptor_fused {dtype} out of tolerance")
+        if fp32:
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        else:
+            entry.update(ms=ms, plain_ms=plain, **bound)
+        del got, again, want
+    _grad_check("adaptor_fused", lp.adaptor_fused, lp.adaptor_reference,
+                (x32[:964], scale, bias, wd32, bd32, wu32, bu32))
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the model
 # ---------------------------------------------------------------------------
@@ -1018,7 +1267,129 @@ def phase_serve_per_layer(results, card: str, profile: bool):
 
 
 # ---------------------------------------------------------------------------
-# phases 7 and 8: the caption fine-tune step
+# phases 7 and 8: the encoder's fused LayerNorm path (set_ln_proj(True))
+# ---------------------------------------------------------------------------
+
+def phase_ln_proj_parity(results):
+    """fp32 Prismer-BASE encode at batch 2 with set_ln_proj(True): card
+    (kernels 14 and 15) against the CPU (plain versions), same seeded
+    weights and inputs; the card's encode launches ln_proj 24 times and
+    adaptor_fused 12 times."""
+    import torch
+    from prismer_tpu_torch.data.device import materialize_experts
+    from prismer_tpu_torch.models import layers
+    from prismer_tpu_torch.models.prismer import build_random_prismer
+    from prismer_tpu_torch.ops import ln_proj as lp
+
+    cfg = slice_config("float32")
+    raw = raw_batch(cfg, 2, torch.Generator().manual_seed(SEED + 16), "cpu")
+    raw_gpu = {k: ({n: t.cuda() for n, t in v.items()}
+                   if isinstance(v, dict) else v.cuda())
+               for k, v in raw.items()}
+    enc, counts = {}, {}
+    for dev, r in (("cpu", raw), ("cuda", raw_gpu)):
+        model = build_random_prismer(cfg, SEED, dev)
+        x = materialize_experts(r, torch.float32)
+        for flag in (True, False):
+            lp.ln_proj.launches = lp.adaptor_fused.launches = 0
+            layers.set_ln_proj(flag)
+            try:
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    enc[dev, flag] = model.encode(x).cpu()
+            finally:
+                layers.set_ln_proj(False)
+            counts[dev, flag] = (lp.ln_proj.launches,
+                                 lp.adaptor_fused.launches)
+            log(f"  {dev} set_ln_proj({flag}): encode {tuple(enc[dev, flag].shape)}"
+                f" in {time.perf_counter() - t0:.2f} s, launches ln_proj / "
+                f"adaptor_fused {counts[dev, flag]}")
+        del model, x
+    rel = rel_l2(enc["cuda", True], enc["cpu", True])
+    rel_off = rel_l2(enc["cuda", True], enc["cuda", False])
+    log(f"  fp32 encode with the flag on, card vs CPU: rel L2 {rel:.3g} (tol "
+        f"{TOL_LNPROJ_ENCODE}); card flag on vs off: rel L2 {rel_off:.3g}")
+    want = (LN_PROJ_PER_ENCODE["ln_proj"], LN_PROJ_PER_ENCODE["adaptor_fused"])
+    expect(counts["cuda", True] == want and counts["cpu", True] == (0, 0)
+           and counts["cuda", False] == (0, 0), f"launches {counts}")
+    expect(bool(torch.isfinite(enc["cuda", True]).all()), "encode not finite")
+    expect(rel <= TOL_LNPROJ_ENCODE and rel_off <= TOL_LNPROJ_ENCODE,
+           "fp32 encode with set_ln_proj(True) out of tolerance")
+    torch.cuda.empty_cache()
+
+
+def phase_serve_ln_proj(results, card: str, profile: bool):
+    """bf16 captioning requests through build_generate_fn with
+    set_ln_proj(True) (fused decode on): each request launches ln_proj 24
+    times and adaptor_fused 12 times. Then the same requests with the flag
+    off, and the batch-8 encode's ms with the flag off and on in turns."""
+    import torch
+    from prismer_tpu_torch.data.device import materialize_experts
+    from prismer_tpu_torch.models import layers
+    from prismer_tpu_torch.models.caption import build_generate_fn
+    from prismer_tpu_torch.models.prismer import compute_dtype
+
+    cfg, model, requests = serve_setup()
+    generate = build_generate_fn(model)
+    wrap = wrappers()
+    reqs = [requests[0]] + requests
+    layers.set_ln_proj(True)
+    try:
+        generate(*requests[0])         # warm-up, one per batch shape
+        generate(*requests[3])
+        torch.cuda.synchronize()
+        for fn in wrap.values():
+            fn.launches = 0
+        outs, times = timed_requests(generate, reqs)
+        counts = {name: fn.launches for name, fn in wrap.items()}
+        if profile:
+            split_request(model, requests[0], "set_ln_proj(True), batch 8",
+                          card)
+            profile_request(generate, requests[0],
+                            "set_ln_proj(True), batch 8", card)
+    finally:
+        layers.set_ln_proj(False)
+    for name in ("fused_layer_norm", "ln_proj", "adaptor_fused"):
+        results[name]["launches"] = counts[name]
+    n = len(reqs)
+    check_requests(reqs, outs, cfg.decoder.vocab_size)
+    expect(torch.equal(outs[0], outs[1]), "same request gave different ids")
+    expect(counts["ln_proj"] == LN_PROJ_PER_ENCODE["ln_proj"] * n
+           and counts["adaptor_fused"] == LN_PROJ_PER_ENCODE["adaptor_fused"]
+           * n and counts["fused_layer_norm"] == 0
+           and all(counts[k] > 0 for k in SERVE_KERNELS),
+           f"set_ln_proj(True) path launches {counts}")
+    off_outs, off_times = timed_requests(generate, reqs)
+    same = sum(torch.equal(a, b) for a, b in zip(outs, off_outs))
+    x = materialize_experts(requests[0][0], compute_dtype(cfg))
+    enc = {False: [], True: []}
+    for flag in (False, True, True, False):
+        layers.set_ln_proj(flag)
+        try:
+            with torch.no_grad():
+                enc[flag].append(cuda_ms(lambda: model.encode(x), iters=5,
+                                         warmup=1))
+        finally:
+            layers.set_ln_proj(False)
+    log(f"  launches on the path: " + ", ".join(
+        f"{k}={counts[k]}" for k in ("ln_proj", "adaptor_fused",
+                                     "fused_layer_norm"))
+        + f" over {n} requests; " + ", ".join(
+        f"{k}={counts[k]}" for k in SERVE_KERNELS))
+    for label, ts in (("set_ln_proj(True)", times), ("flag off", off_times)):
+        ms8 = sum(ts[1:4]) / 3
+        log(f"  {label}, batch 8: {ms8:.1f} ms/request "
+            f"({' '.join(f'{t:.1f}' for t in ts[1:4])}), {8000.0 / ms8:.1f}"
+            f" images/s; batch 5: {ts[4]:.1f} ms/request ({card})")
+    log(f"  ids equal to the flag-off run in {same} of {n} requests (bf16: "
+        f"the two paths round at different points)")
+    log(f"  batch-8 bf16 encode (CUDA events, 5 after 1 warm-up, in turns "
+        f"off/on/on/off): flag off {' '.join(f'{t:.2f}' for t in enc[False])}"
+        f" ms, flag on {' '.join(f'{t:.2f}' for t in enc[True])} ms ({card})")
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the caption fine-tune step
 # ---------------------------------------------------------------------------
 
 # the train phase's lr: the slice's 5e-5, raised to 1e-4 for this check only
@@ -1274,7 +1645,7 @@ def phase_train(results, card: str, profile: bool):
 
 
 # ---------------------------------------------------------------------------
-# phases 9 and 10: the segmentation expert's label generation
+# phases 11 and 12: the segmentation expert's label generation
 # ---------------------------------------------------------------------------
 
 # MaskFormer's deformable attention at 480 px: levels res5, res4, res3
@@ -1538,6 +1909,12 @@ KERNELS = (
      "prismer_tpu/ops/fused_ce.py:255"),
     ("ms_deform_attn", "prismer_tpu_torch/csrc/ms_deform_attn.cu",
      "prismer_tpu/experts/ops/deform_attn_pallas.py:138"),
+    ("fused_layer_norm", "prismer_tpu_torch/csrc/layer_norm.cu",
+     "prismer_tpu/ops/layer_norm.py:58"),
+    ("ln_proj", "prismer_tpu_torch/csrc/ln_proj.cu",
+     "prismer_tpu/ops/ln_proj.py:127"),
+    ("adaptor_fused", "prismer_tpu_torch/csrc/ln_proj.cu",
+     "prismer_tpu/ops/ln_proj.py:242"),
 )
 
 
@@ -1547,7 +1924,9 @@ def wrappers():
     from prismer_tpu_torch.ops import flash_attention as fa
     from prismer_tpu_torch.ops import fused_ce as fc
     from prismer_tpu_torch.ops import fused_decode as fd
+    from prismer_tpu_torch.ops import layer_norm as ln
     from prismer_tpu_torch.ops import lm_topk as lt
+    from prismer_tpu_torch.ops import ln_proj as lp
     return {"flash_attention_packed": fa.flash_attention_packed,
             "flash_attention": fa.flash_attention,
             "beam_update": bu.beam_update,
@@ -1557,7 +1936,10 @@ def wrappers():
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
             "ce_stats": fc.ce_stats,
             "ce_grads": fc.ce_grads,
-            "ms_deform_attn": da.ms_deform_attn}
+            "ms_deform_attn": da.ms_deform_attn,
+            "fused_layer_norm": ln.fused_layer_norm,
+            "ln_proj": lp.ln_proj,
+            "adaptor_fused": lp.adaptor_fused}
 
 
 def main(argv=None) -> int:
@@ -1599,6 +1981,9 @@ def main(argv=None) -> int:
               ("serve", lambda r: phase_serve(r, card, args.profile)),
               ("serve fused off",
                lambda r: phase_serve_per_layer(r, card, args.profile)),
+              ("ln_proj parity", phase_ln_proj_parity),
+              ("serve ln_proj",
+               lambda r: phase_serve_ln_proj(r, card, args.profile)),
               ("train parity", phase_train_parity),
               ("train", lambda r: phase_train(r, card, args.profile)),
               ("segment parity", phase_segment_parity),
@@ -1637,6 +2022,9 @@ def phase_kernels(results):
     check_flash_backward(results)
     check_fused_ce(results)
     check_ms_deform_attn(results)
+    check_layer_norm(results)
+    check_ln_proj(results)
+    check_adaptor_fused(results)
 
 
 if __name__ == "__main__":

@@ -10,9 +10,13 @@ Numerics follow the JAX package:
     cast to the compute dtype before the PV product.
   * `Dropout` is flax `nn.Dropout` in train mode, its masks drawn from a
     generator seeded per layer and step (see its docstring for why).
-Layouts are batch-first (B, L, D) and NHWC for images, as in JAX.
-`ln_proj` and the packed-qkv projection are off by default in JAX and are
-not ported.
+  * `set_ln_proj(True)` (off by default, as in JAX) fuses the encoder
+    block's pre-LayerNorms into their consumers: q/k/v, the MLP's first
+    projection + activation and the whole norm-early Adaptor run as the
+    `ops/ln_proj` kernels, whose rounding points are the JAX Pallas
+    kernels'.
+Layouts are batch-first (B, L, D) and NHWC for images, as in JAX. The
+packed-qkv projection is off by default in JAX and is not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import torch.utils.checkpoint
 
 from prismer_tpu_torch.ops.flash_attention import (NEG_INF, flash_attention,
                                                    packed_attention)
+from prismer_tpu_torch.ops.layer_norm import fp32_layer_norm
+from prismer_tpu_torch.ops.ln_proj import adaptor_fused, ln_proj
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -93,15 +99,6 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     operands (JAX `preferred_element_type=float32`). Products of bf16 values
     are exact in fp32, so upcasting the operands gives the same sum."""
     return torch.matmul(a.float(), b.float())
-
-
-def fp32_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                    eps: float = 1e-5) -> torch.Tensor:
-    x32 = x.float()
-    var, mean = torch.var_mean(x32, dim=-1, keepdim=True, correction=0)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = y * weight.float() + bias.float()
-    return y.to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -186,17 +183,47 @@ def interpolate_pos_embed(pos_embed: torch.Tensor,
     return out.reshape(new * new, d).to(pos_embed.dtype)
 
 
+_LN_PROJ = False
+
+
+def set_ln_proj(mode: Optional[bool]) -> None:
+    """Turn the fused LayerNorm -> consumer kernels on or off (None: the
+    default, off), as JAX's set_ln_proj; read at each forward."""
+    global _LN_PROJ
+    _LN_PROJ = bool(mode)
+
+
+def use_ln_proj() -> bool:
+    """Whether pre-LN blocks run LN inside `ops/ln_proj`'s kernels. Off by
+    default, as in JAX (rejected there on the TPU, where the calls broke
+    XLA's fusions)."""
+    return _LN_PROJ
+
+
 class Mlp(nn.Module):
-    """c_fc -> activation -> c_proj."""
+    """c_fc -> activation -> c_proj.
+
+    pre_ln: the (weight, bias) of a LayerNorm to apply first. With
+    `use_ln_proj()` it runs inside the c_fc + activation kernel (`ln_proj`);
+    otherwise `fp32_layer_norm` runs first (JAX's Mlp(pre_ln=...))."""
 
     def __init__(self, dim: int, hidden: int, out: int, activation: str,
                  dtype, device=None):
         super().__init__()
+        self.activation = activation
         self.act = ACTIVATIONS[activation]
         self.c_fc = Dense(dim, hidden, dtype, device)
         self.c_proj = Dense(hidden, out, dtype, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                pre_ln: Optional[tuple] = None) -> torch.Tensor:
+        if pre_ln is not None and use_ln_proj():
+            fc = self.c_fc
+            (h,) = ln_proj(x.to(fc.weight.dtype), pre_ln[0], pre_ln[1],
+                           [fc.weight], [fc.bias], self.activation)
+            return self.c_proj(h)
+        if pre_ln is not None:
+            x = fp32_layer_norm(x, pre_ln[0], pre_ln[1])
         return self.c_proj(self.act(self.c_fc(x)))
 
 
@@ -220,6 +247,11 @@ class Adaptor(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.norm_late:
             return self.adaptor_ln(self._proj(x) + x)
+        if use_ln_proj():
+            down, up, ln = self.down_proj, self.up_proj, self.adaptor_ln
+            return adaptor_fused(x.to(down.weight.dtype), ln.weight, ln.bias,
+                                 down.weight, down.bias, up.weight, up.bias,
+                                 ln.eps)
         return self._proj(self.adaptor_ln(x)) + x
 
 
@@ -272,8 +304,21 @@ class MultiHeadAttention(nn.Module):
         self.v_proj = Dense(dim, dim, dtype, device)
         self.out_proj = Dense(dim, dim, dtype, device)
 
-    def forward(self, x: torch.Tensor,
-                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
+                pre_ln: Optional[tuple] = None) -> torch.Tensor:
+        """pre_ln: the (weight, bias) of a LayerNorm to apply to x first
+        (self-attention only). With `use_ln_proj()` it runs inside one
+        q/k/v kernel (`ln_proj`); otherwise `fp32_layer_norm` runs first."""
+        if pre_ln is not None:
+            assert kv is None, "pre_ln fusion is a self-attention feature"
+            if use_ln_proj():
+                projs = (self.q_proj, self.k_proj, self.v_proj)
+                q, k, v = ln_proj(x.to(self.q_proj.weight.dtype), pre_ln[0],
+                                  pre_ln[1], [p.weight for p in projs],
+                                  [p.bias for p in projs])
+                return self.out_proj(packed_attention(q, k, v,
+                                                      self.num_heads))
+            x = fp32_layer_norm(x, pre_ln[0], pre_ln[1])
         kv = x if kv is None else kv
         out = packed_attention(self.q_proj(x), self.k_proj(kv),
                                self.v_proj(kv), self.num_heads)

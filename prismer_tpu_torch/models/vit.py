@@ -4,11 +4,12 @@ Per-modality stems (a VALID patch conv for rgb; bilinear resize + conv/BN/
 ReLU stacks for the expert label maps), the shared positional embedding
 re-interpolated per modality, the random-slot instance embedding for
 obj_detection, the Perceiver resampler over all expert tokens, and a trunk
-of pre-LN blocks with an adaptor between attention and MLP. Inputs are NHWC
-and activations batch-first (B, L, D), as in JAX. In training
-(`forward(train=True)`) the stems' BatchNorms normalise with batch
-statistics and update their running ones, and the trunk blocks are
-rematerialised.
+of pre-LN blocks with an adaptor between attention and MLP (with
+`layers.set_ln_proj(True)`, each block's LayerNorms run inside the
+`ops/ln_proj` kernels). Inputs are NHWC and activations batch-first
+(B, L, D), as in JAX. In training (`forward(train=True)`) the stems'
+BatchNorms normalise with batch statistics and update their running ones,
+and the trunk blocks are rematerialised.
 """
 
 from __future__ import annotations
@@ -87,9 +88,13 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp = Mlp(dim, dim * 4, dim, "quick_gelu", dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x))
+        # ln_1 / ln_2 are applied by attn and mlp: inside their kernels with
+        # set_ln_proj(True), as fp32_layer_norm before them otherwise; the
+        # parameters stay where they are, so the state_dict is the same
+        ln_1, ln_2 = self.ln_1, self.ln_2
+        x = x + self.attn(x, pre_ln=(ln_1.weight, ln_1.bias))
         x = self.adaptor(x)
-        return x + self.mlp(self.ln_2(x))
+        return x + self.mlp(x, pre_ln=(ln_2.weight, ln_2.bias))
 
 
 class LabelStem(nn.Module):

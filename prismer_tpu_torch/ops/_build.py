@@ -120,6 +120,12 @@ def kernels() -> ctypes.CDLL:
     lib.prismer_ce_grads.restype = _I
     lib.prismer_ms_deform_attn.argtypes = [_P] * 5 + [_I] * 7 + [_P]
     lib.prismer_ms_deform_attn.restype = _I
+    lib.prismer_layer_norm.argtypes = [_P] * 4 + [_I] * 2 + [_F, _I, _P]
+    lib.prismer_layer_norm.restype = _I
+    lib.prismer_ln_proj.argtypes = [_P] * 12 + [_I] * 6 + [_F, _I, _I, _P]
+    lib.prismer_ln_proj.restype = _I
+    lib.prismer_adaptor_fused.argtypes = [_P] * 8 + [_I] * 2 + [_F, _I, _P]
+    lib.prismer_adaptor_fused.restype = _I
     return lib
 
 

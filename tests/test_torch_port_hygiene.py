@@ -33,10 +33,10 @@ BLOCKED = ("jax", "flax", "optax", "orbax", "yaml", "regex", "PIL")
 
 
 def test_package_imports_without_jax_flax_yaml_regex_pil():
-    """Every module (train/, ops/fused_ce and the segmentation expert's
-    experts/, convert/experts, data/png and data/pil_warp among them)
-    imports with jax, flax, optax, orbax, yaml, regex and PIL
-    unimportable."""
+    """Every module (train/, ops/fused_ce, ops/layer_norm, ops/ln_proj and
+    the segmentation expert's experts/, convert/experts, data/png and
+    data/pil_warp among them) imports with jax, flax, optax, orbax, yaml,
+    regex and PIL unimportable."""
     code = "\n".join([
         "import sys, importlib, pkgutil",
         f"for m in {BLOCKED!r}:",
@@ -68,7 +68,9 @@ def test_package_imports_without_jax_flax_yaml_regex_pil():
         "        'prismer_tpu_torch.experts.generate',",
         "        'prismer_tpu_torch.convert.experts',",
         "        'prismer_tpu_torch.data.png',",
-        "        'prismer_tpu_torch.data.pil_warp'} <= set(names), names",
+        "        'prismer_tpu_torch.data.pil_warp',",
+        "        'prismer_tpu_torch.ops.layer_norm',",
+        "        'prismer_tpu_torch.ops.ln_proj'} <= set(names), names",
         "print(len(names))",
     ])
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -216,7 +218,8 @@ def test_smoke_run_turns_tf32_off():
 
 KERNEL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
                   "beam_update.cu", "fused_decode.cu", "lm_topk.cu",
-                  "fused_ce.cu", "ms_deform_attn.cu", "common.cuh")
+                  "fused_ce.cu", "ms_deform_attn.cu", "layer_norm.cu",
+                  "ln_proj.cu", "common.cuh", "layer_norm.cuh")
 
 
 def test_kernel_library_named_by_source_hash():

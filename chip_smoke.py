@@ -12,14 +12,21 @@ requests went through every serving kernel. Then the encoder's fused
 LayerNorm path (`models.layers.set_ln_proj(True)`, off by default as in
 JAX): the fp32 encode at batch 2 on the card against the CPU, and the bf16
 requests again with the flag on, each of which must launch `ln_proj` 24
-times and `adaptor_fused` 12 times (12 blocks), timed beside the flag off.
-Then the caption fine-tune step: one fp32 train step on the card against the CPU, and ten bf16 AdamW
+times and `adaptor_fused` 12 times (12 blocks), timed beside the flag off. Then the per-layer decode path's
+grouped cross-attention kernel (`models.roberta.set_decode_cross("kernel")`)
+and the fused path's int8 cross K/V (`set_kv_quant("int8")`), both off by
+default as in JAX: each as an fp32 decoder at batch 2 on the card against
+the CPU (step logits and beam ids), and the first as bf16 batch-8 requests
+beside the switch off. Then Prismer-LARGE (ViT-L/14, 336 px) and
+Prismer-HUGE (ViT-H/14, 480 px, int8 off and on) serve batch-8 requests at
+full depth. Then the caption fine-tune step: one fp32 train step on the card against the CPU, and ten bf16 AdamW
 steps through `build_train_step` that must lower the loss, move every
 trainable leaf, keep every frozen one and launch every training kernel,
 timed at batch 4 and 16. Then the segmentation expert's label generation:
 the fp32 Swin-L Mask2Former at 480 px on the card against the CPU, and the
 generator's entry point (`prismer_tpu_torch.experts.generate.main`) over 37
-synthetic PNGs at batch 16, which must launch the deformable-attention
+synthetic PNGs at batch 16, with TF32 at torch's defaults (the
+generator pins fp32 itself), which must launch the deformable-attention
 kernel 18 times and write every label map at its image's size. Exits
 non-zero if any phase fails or if there is no CUDA device; the last line of
 standard output is a JSON object with the device.
@@ -109,7 +116,16 @@ TOL_LN_BF16_ABS = {"fused_layer_norm": 2e-2, "ln_proj": 2e-2,
 # fp32 Prismer-BASE encode with set_ln_proj(True), card vs CPU (rel L2)
 TOL_LNPROJ_ENCODE = 1e-4
 ENC_ROWS, ENC_DIM = 8 * 964, 768    # the encoder's rows at batch 8
+# the LayerNorm kernels' shapes: Prismer-BASE's, then ViT-H/14's at 480 px
+ENC_SHAPES = ((ENC_ROWS, ENC_DIM), (8 * 1220, 1280))
 LN_PROJ_PER_ENCODE = {"ln_proj": 24, "adaptor_fused": 12}   # 12 blocks
+
+# the beam-grouped decode cross-attention (kernels 11, 12), kernel vs plain
+# on the same inputs: max abs, fp32 TOL_FP32 and bf16 TOL_BF16_OUT (one
+# bf16 ulp of an output near 1 is 2^-8)
+# fp32 per-layer decode with set_decode_cross("kernel") and fp32 fused
+# decode with int8 cross K/V, card vs CPU: the step logits' rel L2
+TOL_DECODE_LOGITS = 1e-4
 
 # the H100 SXM's published rates (NVIDIA data sheet): HBM bytes/s and dense
 # FLOP/s by operand type
@@ -214,9 +230,11 @@ def check_attention(results):
         return torch.randn(*shape, generator=gen, device=dev)
 
     packed = results["flash_attention_packed"]
-    # encoder self-attention and resampler cross-attention
+    # encoder self-attention and resampler cross-attention: Prismer-BASE,
+    # then the LARGE / HUGE head dims (80, 128, 160)
     for name, b, lq, lk, h, dh in (("encoder", 8, 964, 964, 12, 64),
-                                    ("resampler", 8, 64, 1240, 8, 96)):
+                                    ("resampler", 8, 64, 1240, 8, 96),
+                                    *wide_attention()):
         q32, k32, v32 = randn(b, lq, h * dh), randn(b, lk, h * dh), \
             randn(b, lk, h * dh)
         for dtype in (torch.float32, torch.bfloat16):
@@ -240,17 +258,19 @@ def check_attention(results):
             expect(e_out <= tol_o and e_lse <= tol_l,
                    f"packed attention {name} {dtype} out of tolerance")
             packed["max_abs_err"] = max(packed["max_abs_err"], e_out)
-            if dtype == torch.bfloat16 and name == "encoder":
-                packed["ms"], packed["plain_ms"] = ms, plain
-                set_bound(packed, nbytes(q, k, v, out, lse),
+            if dtype == torch.bfloat16:
+                bound = {}
+                set_bound(bound, nbytes(q, k, v, out, lse),
                           4.0 * b * h * lq * lk * dh, dtype)
                 heads = [t.view(b, -1, h, dh).transpose(1, 2)
                          for t in (q, k, v)]
-                packed["library_ms"] = cuda_ms(
-                    lambda: F.scaled_dot_product_attention(*heads))
-                log(f"    bound {packed['bound_ms']:.4f} ms "
-                    f"({packed['bound_by']}), F.scaled_dot_product_attention"
-                    f" {packed['library_ms']:.4f} ms")
+                lib = cuda_ms(lambda: F.scaled_dot_product_attention(*heads))
+                log(f"    bound {bound['bound_ms']:.4f} ms "
+                    f"({bound['bound_by']}), F.scaled_dot_product_attention"
+                    f" {lib:.4f} ms")
+                if name == "encoder":
+                    packed.update(ms=ms, plain_ms=plain, library_ms=lib,
+                                  **bound)
 
     flash = results["flash_attention"]
     # decoder prefill self-attention: N = 8 * 3 beams, right-padded prompts
@@ -360,16 +380,18 @@ def check_beam_update(results):
 
 # Prismer-BASE decoder shapes: D, heads, F, cross layers, max length, L
 BASE = dict(d=768, heads=12, f=3072, nlc=12, t=20, l_enc=964)
+# Prismer-HUGE's (roberta-large, 24 + 1 layers; LARGE's but for L = 640)
+HUGE_DEC = dict(d=1024, heads=16, f=4096, nlc=24, t=20, l_enc=1220)
 
 
-def _fused_case(gen, b, beams, index):
-    """Random fused-step inputs at Prismer-BASE widths (fp32, on the card):
-    packed weights scaled like lecun-normal Dense kernels, LN scales near 1,
-    caches and cross K/V of unit scale, a key mask valid through `index`
-    with a pad hole, and a beam permutation within each sample."""
+def _fused_case(gen, b, beams, index, dims=BASE):
+    """Random fused-step inputs at the decoder widths `dims` (fp32, on the
+    card): packed weights scaled like lecun-normal Dense kernels, LN scales
+    near 1, caches and cross K/V of unit scale, a key mask valid through
+    `index` with a pad hole, and a beam permutation within each sample."""
     import torch
     from prismer_tpu_torch.ops.fused_decode import layer_views, packed_sizes
-    d, f, nlc, t = BASE["d"], BASE["f"], BASE["nlc"], BASE["t"]
+    d, f, nlc, t = dims["d"], dims["f"], dims["nlc"], dims["t"]
     n = b * beams
     dev = "cuda"
 
@@ -392,8 +414,8 @@ def _fused_case(gen, b, beams, index):
                  + torch.arange(b, device=dev)[:, None] * beams)
     return dict(hidden0=randn(n, d), w_all=w_all, b_all=b_all,
                 self_k=randn(nlc + 1, t, n, d), self_v=randn(nlc + 1, t, n, d),
-                key_mask=key_mask, cross_k=randn(nlc, b, BASE["l_enc"], d),
-                cross_v=randn(nlc, b, BASE["l_enc"], d), index=index,
+                key_mask=key_mask, cross_k=randn(nlc, b, dims["l_enc"], d),
+                cross_v=randn(nlc, b, dims["l_enc"], d), index=index,
                 flat_beam=flat_beam.reshape(-1).to(torch.int32))
 
 
@@ -498,14 +520,22 @@ def check_fused_decode(results):
 
 def check_lm_topk(results):
     import torch
-    from prismer_tpu_torch.ops import lm_topk as lt
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     entry = results["lm_topk"]
-    v, d, beams = 50265, 768, 3
+    for d, batches in ((768, (8, 5, 16)), (1024, (8,))):
+        _check_lm_topk(gen, entry, d, batches)
+
+
+def _check_lm_topk(gen, entry, d, batches):
+    """lm_topk at width d (768 BASE, 1024 LARGE / HUGE) for each batch."""
+    import torch
+    from prismer_tpu_torch.ops import lm_topk as lt
+
+    v, beams = 50265, 3
     emb32 = torch.randn(v, d, generator=gen, device="cuda") * 0.02
     bias = torch.randn(v, generator=gen, device="cuda") * 0.1
-    for b in (8, 5, 16):         # 16: a second 32-row block, as above
+    for b in batches:            # 16: a second 32-row block, as above
         n = b * beams
         h32 = torch.randn(n, d, generator=gen, device="cuda")
         alive = torch.randn(b, beams, generator=gen, device="cuda")
@@ -533,7 +563,7 @@ def check_lm_topk(results):
                 ok_v = bool(((got[0] - want[0]).abs()
                              <= TOL_TOPK + TOL_TOPK * want[0].abs()).all())
                 ties = got[2][0, :3].tolist()
-                log(f"  lm_topk N={n} V={v} {str(dtype)[6:]} mask_eos="
+                log(f"  lm_topk N={n} V={v} D={d} {str(dtype)[6:]} mask_eos="
                     f"{mask_eos}: indices exact {exact}, max|val err| "
                     f"{err:.3g} (tol {TOL_TOPK} rel + {TOL_TOPK} abs), "
                     f"repeat bit-identical {repeat}, tied tokens {ties}")
@@ -541,7 +571,7 @@ def check_lm_topk(results):
                        f"lm_topk N={n} {dtype} mask_eos={mask_eos} differs")
                 expect(ties == [1000, 2000, 40000], "lm_topk tie order")
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            if dtype == torch.bfloat16 and b == 8:
+            if dtype == torch.bfloat16 and b == 8 and d == 768:
                 entry["ms"] = cuda_ms(lambda: lt.lm_topk(
                     h, emb, bb, alive, False, **kw), iters=20)
                 entry["plain_ms"] = cuda_ms(lambda: lt.lm_topk_reference(
@@ -574,7 +604,8 @@ TRAIN_ATTENTION = (
 
 def check_flash_backward(results):
     """Kernels 6 and 7 against their plain versions at the train step's
-    shapes, fp32 and bf16; two launches on the same inputs bit-identical."""
+    shapes and at the LARGE / HUGE encoders' head dims 80, 128 and 160,
+    fp32 and bf16; two launches on the same inputs bit-identical."""
     import torch
     import torch.nn.functional as F
     from prismer_tpu_torch.ops import flash_attention as fa
@@ -582,7 +613,10 @@ def check_flash_backward(results):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     dq_e, dkv_e = (results["flash_attention_bwd_dq"],
                    results["flash_attention_bwd_dkv"])
-    for name, packed, b, lq, lk, h, dh, masked, causal in TRAIN_ATTENTION:
+    wide = [(name, True, b, lq, lk, h, dh, False, False)
+            for name, b, lq, lk, h, dh in wide_attention()]
+    for name, packed, b, lq, lk, h, dh, masked, causal in (*TRAIN_ATTENTION,
+                                                           *wide):
         w = h * dh
         if packed:
             shapes = ((b, lq, w), (b, lk, w), (b, lk, w))
@@ -641,7 +675,15 @@ def check_flash_backward(results):
             if fp32:
                 dq_e["max_abs_err"] = max(dq_e["max_abs_err"], errs[0])
                 dkv_e["max_abs_err"] = max(dkv_e["max_abs_err"], *errs[1:])
-            elif name == "trunk":
+            elif name != "trunk":
+                pairs = 1.0 * b * h * lq * lk * dh
+                ins = nbytes(q, k, v, dout, lse, delta)
+                bq, bkv = {}, {}
+                set_bound(bq, ins + nbytes(got[0]), 6.0 * pairs, dtype)
+                set_bound(bkv, ins + nbytes(*got[1:]), 8.0 * pairs, dtype)
+                log(f"    bound dq {bq['bound_ms']:.4f} ms ({bq['bound_by']}),"
+                    f" dk/dv {bkv['bound_ms']:.4f} ms ({bkv['bound_by']})")
+            else:
                 dq_e["ms"], dq_e["plain_ms"] = ms_dq, plain_dq
                 dkv_e["ms"], dkv_e["plain_ms"] = ms_dkv, plain_dkv
                 pairs = 1.0 * b * h * lq * lk * dh
@@ -789,16 +831,21 @@ def _grad_check(name, kernel_fn, plain_fn, leaves):
 
 
 def check_layer_norm(results):
-    """Kernel 13 against its plain version at the encoder's LayerNorm shape
-    (R = 8 x 964, D = 768), fp32 and bf16; two launches bit-identical; the
-    Function's fp32 gradient."""
+    """Kernel 13 against its plain version at the encoder's LayerNorm
+    shapes (R = 8 x 964, D = 768; HUGE's R = 8 x 1220, D = 1280), fp32 and
+    bf16; two launches bit-identical; the Function's fp32 gradient."""
+    for rows, dim in ENC_SHAPES:
+        _check_layer_norm(results, rows, dim)
+
+
+def _check_layer_norm(results, rows, dim):
     import torch
     import torch.nn.functional as F
     from prismer_tpu_torch.ops import layer_norm as ln
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     entry = results["fused_layer_norm"]
-    x32, scale, bias = _ln_case(gen, ENC_ROWS, ENC_DIM)
+    x32, scale, bias = _ln_case(gen, rows, dim)
     for dtype in (torch.float32, torch.bfloat16):
         x = x32.to(dtype)
         fp32 = dtype == torch.float32
@@ -811,7 +858,7 @@ def check_layer_norm(results):
         finite = bool(torch.isfinite(got.float()).all())
         ms = graph_ms(lambda: ln.fused_layer_norm(x, scale, bias))
         plain = graph_ms(lambda: ln.fp32_layer_norm(x, scale, bias))
-        log(f"  fused_layer_norm R={ENC_ROWS} D={ENC_DIM} {str(dtype)[6:]}: "
+        log(f"  fused_layer_norm R={rows} D={dim} {str(dtype)[6:]}: "
             f"max|err| {err:.3g}, within tolerance {ok}, repeat "
             f"bit-identical {repeat}, finite {finite}; kernel {ms:.4f} ms "
             f"plain {plain:.4f} ms (graph replay)")
@@ -820,14 +867,15 @@ def check_layer_norm(results):
         if fp32:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
         else:
-            entry.update(ms=ms, plain_ms=plain)
-            set_bound(entry, nbytes(x, scale, bias, got),
-                      8.0 * ENC_ROWS * ENC_DIM, torch.float32)
+            bound = {}
+            set_bound(bound, nbytes(x, scale, bias, got), 8.0 * rows * dim,
+                      torch.float32)
             sb, bb = scale.to(dtype), bias.to(dtype)
-            entry["library_ms"] = graph_ms(
-                lambda: F.layer_norm(x, (ENC_DIM,), sb, bb))
-            log(f"    bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}),"
-                f" F.layer_norm {entry['library_ms']:.4f} ms")
+            lib = graph_ms(lambda: F.layer_norm(x, (dim,), sb, bb))
+            log(f"    bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}),"
+                f" F.layer_norm {lib:.4f} ms")
+            if dim == ENC_DIM:
+                entry.update(ms=ms, plain_ms=plain, library_ms=lib, **bound)
     _grad_check("fused_layer_norm", ln.fused_layer_norm,
                 ln.fp32_layer_norm, (x32[:964], scale, bias))
     torch.cuda.empty_cache()
@@ -835,15 +883,19 @@ def check_layer_norm(results):
 
 def check_ln_proj(results):
     """Kernel 14 against its plain version at the encoder block's shapes,
-    R = 8 x 964, D = 768: q/k/v (3 x 768) and c_fc (3072) + quick_gelu,
-    fp32 and bf16; two launches bit-identical; the Function's fp32
-    gradient."""
+    R = 8 x 964, D = 768 (and HUGE's R = 8 x 1220, D = 1280): q/k/v
+    (3 x D) and c_fc (4 D) + quick_gelu, fp32 and bf16; two launches
+    bit-identical; the Function's fp32 gradient."""
+    for rows, dim in ENC_SHAPES:
+        _check_ln_proj(results, rows, dim)
+
+
+def _check_ln_proj(results, r, d):
     import torch
     from prismer_tpu_torch.ops import ln_proj as lp
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
     entry = results["ln_proj"]
-    r, d = ENC_ROWS, ENC_DIM
     x32, scale, bias = _ln_case(gen, r, d)
     for label, fs, act in (("q/k/v", (d, d, d), None),
                            ("c_fc", (4 * d,), "quick_gelu")):
@@ -881,7 +933,7 @@ def check_ln_proj(results):
                    f"ln_proj {label} {dtype} out of tolerance")
             if fp32:
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            elif label == "q/k/v":
+            elif label == "q/k/v" and d == ENC_DIM:
                 entry.update(ms=ms, plain_ms=plain_ms, **bound)
             del got, again, want
         if act is not None:
@@ -893,15 +945,19 @@ def check_ln_proj(results):
 
 
 def check_adaptor_fused(results):
-    """Kernel 15 against its plain version at the encoder's shape, R = 8 x
-    964, D = 768, fp32 and bf16; two launches bit-identical; the Function's
-    fp32 gradient."""
+    """Kernel 15 against its plain version at the encoder's shapes, R = 8 x
+    964, D = 768 (and HUGE's R = 8 x 1220, D = 1280), fp32 and bf16; two
+    launches bit-identical; the Function's fp32 gradient."""
+    for rows, dim in ENC_SHAPES:
+        _check_adaptor_fused(results, rows, dim)
+
+
+def _check_adaptor_fused(results, r, d):
     import torch
     from prismer_tpu_torch.ops import ln_proj as lp
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
     entry = results["adaptor_fused"]
-    r, d = ENC_ROWS, ENC_DIM
     x32, scale, bias = _ln_case(gen, r, d)
     (wd32, bd32), (wu32, bu32) = _dense(gen, d, d), _dense(gen, d, d)
     for dtype in (torch.float32, torch.bfloat16):
@@ -930,12 +986,451 @@ def check_adaptor_fused(results):
                f"adaptor_fused {dtype} out of tolerance")
         if fp32:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        else:
+        elif d == ENC_DIM:
             entry.update(ms=ms, plain_ms=plain, **bound)
         del got, again, want
     _grad_check("adaptor_fused", lp.adaptor_fused, lp.adaptor_reference,
                 (x32[:964], scale, bias, wd32, bd32, wu32, bu32))
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the LARGE / HUGE shapes, the int8 fused step (4b) and kernels 11 / 12
+# ---------------------------------------------------------------------------
+
+# the served sizes, as the JAX package's bench served them: (label, registry
+# model, input resolution)
+SIZES = (("LARGE", "prismer_large", 336), ("HUGE", "prismer_huge", 480))
+
+
+def model_config(model: str, res: int, dtype: str):
+    from prismer_tpu_torch.config import CAPTION_EXPERTS, build_prismer_config
+    return build_prismer_config({
+        "experts": CAPTION_EXPERTS, "image_resolution": res,
+        "prismer_model": model, "freeze": "freeze_vision", "dtype": dtype})
+
+
+def expert_tokens(v) -> int:
+    """The label stems' token count: each stem rescales the 224 px label
+    map by 4 / patch (id maps) or 16 / patch and strides by 4 or 16."""
+    from prismer_tpu_torch.models.vit import ID_MAP_EXPERTS
+    n = 0
+    for exp, _ in v.experts:
+        if exp != "rgb":
+            f = 4 if exp in ID_MAP_EXPERTS else 16
+            n += (int(v.label_resolution * f / v.patch_size) // f) ** 2
+    return n
+
+
+def wide_attention():
+    """(name, B, Lq, Lk, H, Dh) at batch 8 of the LARGE / HUGE encoders'
+    attention whose head dim Prismer-BASE does not have: HUGE's trunk (80)
+    and both resamplers (128, 160)."""
+    out = []
+    for label, model, res in SIZES:
+        v = model_config(model, res, "bfloat16").vision
+        trunk = v.rgb_tokens + v.resampler_latents
+        if v.width // v.heads != 64:
+            out.append((f"{label} trunk", 8, trunk, trunk, v.heads,
+                        v.width // v.heads))
+        out.append((f"{label} resampler", 8, v.resampler_latents,
+                    expert_tokens(v) + v.resampler_latents,
+                    v.resampler_heads, v.width // v.resampler_heads))
+    return out
+
+
+def _quantized(case, heads):
+    """The case's cross K/V as int8 with their (NLc, B, H) scales."""
+    import torch
+    from prismer_tpu_torch.ops.fused_decode import quantize_kv
+    out = {}
+    for name in ("cross_k", "cross_v"):
+        pairs = [quantize_kv(x, heads) for x in case[name]]
+        out[name] = torch.stack([q for q, _ in pairs])
+        out[name + "s"] = torch.stack([s for _, s in pairs])
+    return out
+
+
+def check_fused_decode_huge(results):
+    """Kernels 4 and 4b at the HUGE decoder (D 1024, 24 + 1 layers, F 4096,
+    L 1220, N = 8 x 3), fp32 and bf16, with and without the reorder: the
+    int8 step against the plain int8 step on the same quantized inputs, by
+    the tolerances of the BASE check above."""
+    import torch
+    from prismer_tpu_torch.ops import fused_decode as fd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    dims = HUGE_DEC
+    kw = dict(heads=dims["heads"], eps=1e-5)
+    case = _fused_case(gen, 8, 3, 10, dims)
+    index, fb = case.pop("index"), case.pop("flat_beam")
+    q8 = _quantized(case, dims["heads"])
+    e4, e4b = results["fused_decode_step"], results["fused_decode_step_int8"]
+    for quant in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = {k: (v.to(dtype) if v.is_floating_point() and k != "b_all"
+                     else v) for k, v in case.items()}
+            if quant:
+                x.update(q8)
+            fp32 = dtype == torch.float32
+            x32 = {k: (v.float() if v.is_floating_point() else v)
+                   for k, v in x.items()}
+            x32["b_all"] = x["b_all"].to(dtype).float()
+
+            def args(t, perm):  # fresh caches for each call
+                return ((t["hidden0"], t["w_all"], t["b_all"],
+                         t["self_k"].clone(), t["self_v"].clone(),
+                         t["key_mask"], t["cross_k"], t["cross_v"], index,
+                         fb if perm else None),
+                        dict(kw, cross_ks=t.get("cross_ks"),
+                             cross_vs=t.get("cross_vs")))
+
+            k = dict(kw, cross_ks=x.get("cross_ks"),
+                     cross_vs=x.get("cross_vs"))
+            for perm in (False, True):
+                a, _ = args(x, perm)
+                got = fd.fused_decode_step(*a, **k)
+                want = fd.fused_decode_step_reference(*a, **k)
+                torch.cuda.synchronize()
+                errs = [(g.float() - w.float()).abs().max().item()
+                        for g, w in zip(got[:3], want[:3])]
+                finite = all(bool(torch.isfinite(g.float()).all())
+                             for g in got[:3])
+                line = (f"  fused_decode_step HUGE N=24 L={dims['l_enc']} "
+                        f"{str(dtype)[6:]} int8={quant} perm={perm}: max|err| "
+                        f"hidden/k_new/v_new "
+                        f"{'/'.join(f'{e:.3g}' for e in errs)}")
+                if fp32:
+                    ok = max(errs) <= TOL_FUSED_FP32
+                    line += f" (tol max abs {TOL_FUSED_FP32})"
+                else:
+                    a32, k32 = args(x32, perm)
+                    exact = fd.fused_decode_step_reference(*a32, **k32)
+                    shallow = max(rel_l2(got[i][0], want[i][0])
+                                  for i in (1, 2))
+                    k_err = rel_l2(got[0], exact[0])
+                    p_err = rel_l2(want[0], exact[0])
+                    ok = (shallow <= TOL_FUSED_BF16
+                          and k_err <= TOL_FUSED_BF16_DEPTH * p_err)
+                    line += (f"; layer-0 k/v_new rel L2 {shallow:.3g} (tol "
+                             f"{TOL_FUSED_BF16}); hidden rel L2 to the fp32 "
+                             f"run: kernel {k_err:.3g}, plain {p_err:.3g} "
+                             f"(tol kernel <= {TOL_FUSED_BF16_DEPTH} x "
+                             f"plain)")
+                    del exact
+                log(line + f", finite {finite}")
+                expect(ok and finite, f"fused_decode_step HUGE {dtype} "
+                       f"int8={quant} perm={perm} out of tolerance")
+                entry = e4b if quant else e4
+                if fp32:
+                    entry["max_abs_err"] = max(entry["max_abs_err"], *errs)
+                if not fp32 and perm:
+                    call = (x["hidden0"], x["w_all"], x["b_all"],
+                            x["self_k"], x["self_v"], x["key_mask"],
+                            x["cross_k"], x["cross_v"], index, fb,
+                            torch.empty_like(x["self_k"]),
+                            torch.empty_like(x["self_v"]))
+                    ms = cuda_ms(lambda: fd.fused_decode_step(*call, **k),
+                                 iters=10)
+                    plain = cuda_ms(lambda: fd.fused_decode_step_reference(
+                        *call, **k), iters=5)
+                    n, d = x["hidden0"].shape
+                    flops = 2.0 * n * x["w_all"].numel() + 4.0 * n * d * (
+                        dims["t"] * (dims["nlc"] + 1)
+                        + dims["l_enc"] * dims["nlc"])
+                    bound = {}
+                    set_bound(bound, nbytes(
+                        x["hidden0"], x["w_all"], x["b_all"], x["self_k"],
+                        x["self_v"], x["key_mask"], x["cross_k"],
+                        x["cross_v"], x.get("cross_ks"), x.get("cross_vs"),
+                        fb, *got), flops, dtype)
+                    log(f"    bf16 HUGE N=24 int8={quant} with reorder: kernel "
+                        f"{ms:.4f} ms plain {plain:.4f} ms bound "
+                        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+                    if quant:
+                        e4b.update(ms=ms, plain_ms=plain, **bound)
+                del got, want
+            del x, x32
+            torch.cuda.empty_cache()
+    del case, q8
+    torch.cuda.empty_cache()
+
+
+def check_decode_attention(results):
+    """Kernels 11 (mode cross_t) and 12 (mode decode) against their plain
+    versions: Prismer-BASE batch 8 (H 12, L 964) at Q = 3 (a decode step)
+    and 12 (the prefill, 3 beams x 4 tokens), HUGE batch 8 (H 16, L 1220)
+    at Q = 3; fp32 and bf16; two launches bit-identical."""
+    import torch
+    import torch.nn.functional as F
+    from prismer_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    entries = {"cross_t": results["grouped_cross_attention"],
+               "decode": results["grouped_decode_attention"]}
+    for label, b, h, l, nq in (("BASE", 8, 12, 964, 3), ("BASE", 8, 12, 964, 12),
+                               ("HUGE", 8, 16, 1220, 3)):
+        q32, k32, v32 = (torch.randn(b, h, n, 64, generator=gen,
+                                     device="cuda") for n in (nq, l, l))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            for mode, entry in entries.items():
+                got = da.grouped_cross_attention(q, k, v, mode)
+                again = da.grouped_cross_attention(q, k, v, mode)
+                want = da.grouped_attention_reference(q, k, v, mode)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                repeat = torch.equal(got, again)
+                finite = bool(torch.isfinite(got.float()).all())
+                fp32 = dtype == torch.float32
+                tol = TOL_FP32 if fp32 else TOL_BF16_OUT
+                ms = graph_ms(lambda: da.grouped_cross_attention(q, k, v,
+                                                                 mode))
+                plain = graph_ms(lambda: da.grouped_attention_reference(
+                    q, k, v, mode))
+                bound = {}
+                set_bound(bound, nbytes(q, k, v, got),
+                          4.0 * b * h * nq * l * 64, dtype)
+                lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+                log(f"  grouped attention {mode} {label} B={b} H={h} L={l} "
+                    f"Q={nq} {str(dtype)[6:]}: max|err| {err:.3g} (tol {tol}),"
+                    f" repeat bit-identical {repeat}, finite {finite}; kernel "
+                    f"{ms:.4f} ms plain {plain:.4f} ms (graph replay), bound "
+                    f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                    f"F.scaled_dot_product_attention {lib:.4f} ms")
+                expect(err <= tol and repeat and finite,
+                       f"grouped attention {mode} {label} Q={nq} {dtype} "
+                       "out of tolerance")
+                if fp32:
+                    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                elif label == "BASE" and nq == 3:
+                    entry.update(ms=ms, plain_ms=plain, library_ms=lib,
+                                 **bound)
+        torch.cuda.empty_cache()
+
+
+def _decode_parity(label, setup):
+    """fp32 Prismer-BASE at batch 2: the decoder on the card against the
+    same decoder on the CPU (the card's encode copied over), under the
+    switches `setup(flag)` sets (flag False restores the defaults). The
+    step logits of init_cache + one decode step to TOL_DECODE_LOGITS rel
+    L2, and beam search's ids equal. Returns the card's launch counts."""
+    import torch
+    from prismer_tpu_torch.data.device import materialize_experts
+    from prismer_tpu_torch.models.generation import beam_search
+    from prismer_tpu_torch.models.prismer import (build_random_prismer,
+                                                  prepare_serving_variables)
+
+    cfg = slice_config("float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    raw = raw_batch(cfg, 2, gen, "cuda")
+    prompt = torch.tensor([[0, 250, 1000, 7], [0, 31, 1, 1]],
+                          dtype=torch.int32)
+    mask = (prompt != 1).to(torch.int32)         # row 1 right-padded
+    kw = dict(num_beams=3, max_length=20, min_length=8, eos_token_id=2,
+              pad_token_id=1)
+    out, counts = {}, None
+    for dev in ("cuda", "cpu"):
+        model = build_random_prismer(cfg, SEED, dev)
+        with torch.no_grad():
+            if dev == "cuda":
+                enc = model.encode(materialize_experts(raw, torch.float32))
+            pr, pm = prompt.to(dev), mask.to(dev)
+            e = enc.to(dev)
+            wrap = wrappers()
+            setup(True)
+            try:
+                for fn in wrap.values():
+                    fn.launches = 0
+                serving = prepare_serving_variables(model)
+                ids3, m3 = pr.repeat_interleave(3, 0), pm.repeat_interleave(3, 0)
+                logits, cache = model.init_cache(
+                    ids3, m3, e, 20, 3, packed=serving)
+                key_mask = torch.zeros((6, 20), dtype=torch.int32, device=dev)
+                key_mask[:, :4] = m3
+                key_mask[:, 4] = 1             # the step's own column
+                step, _ = model.decode_step(
+                    torch.full((6,), 500, dtype=torch.int32, device=dev), 4,
+                    m3.sum(1).to(torch.int32) + 2, key_mask, cache, 3)
+                seqs, scores = beam_search(model, e, pr, pm, serving=serving,
+                                           **kw)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    counts = {n: fn.launches for n, fn in wrap.items()}
+            finally:
+                setup(False)
+        out[dev] = (logits.cpu(), step.cpu(), seqs.cpu(), scores.cpu())
+        del model, cache
+    e0 = rel_l2(out["cuda"][0], out["cpu"][0])
+    e1 = rel_l2(out["cuda"][1], out["cpu"][1])
+    same = torch.equal(out["cuda"][2], out["cpu"][2])
+    err = (out["cuda"][3] - out["cpu"][3]).abs().max().item()
+    log(f"  {label}, fp32 batch 2, card vs CPU: prefill logits rel L2 "
+        f"{e0:.3g}, step logits rel L2 {e1:.3g} (tol {TOL_DECODE_LOGITS}); "
+        f"ids identical {same}, max|score diff| {err:.3g} (tol "
+        f"{TOL_SCORES}); card ids {out['cuda'][2].tolist()}")
+    expect(e0 <= TOL_DECODE_LOGITS and e1 <= TOL_DECODE_LOGITS,
+           f"{label}: logits card vs CPU")
+    expect(same and err <= TOL_SCORES, f"{label}: ids or scores differ")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_decode_cross_parity(results):
+    """The per-layer decode path with set_decode_cross("kernel"): kernel 11
+    in the prefill and every step, card against the CPU's plain version."""
+    from prismer_tpu_torch.models import roberta
+
+    def setup(on):
+        roberta.set_fused_decode("off" if on else "auto")
+        roberta.set_decode_cross("kernel" if on else "matmul")
+
+    counts = _decode_parity("set_decode_cross(\"kernel\")", setup)
+    n = counts["grouped_cross_attention"]
+    steps = counts["beam_update"]
+    log(f"  card launches: grouped_cross_attention {n} over init_cache + 1 "
+        f"step + a beam search of {steps} steps (12 layers each)")
+    expect(n == 12 * (1 + 1 + 1 + steps) and counts["fused_decode_step"] == 0,
+           f"decode cross parity launches {counts}")
+
+
+def phase_kv_quant_parity(results):
+    """The fused decode path with set_kv_quant("int8"): kernel 4b, card
+    against the CPU's plain version of the int8 step."""
+    from prismer_tpu_torch.models import roberta
+
+    def setup(on):
+        roberta.set_fused_decode("on" if on else "auto")
+        roberta.set_kv_quant("int8" if on else "off")
+
+    counts = _decode_parity("set_kv_quant(\"int8\")", setup)
+    log(f"  card launches: fused_decode_step int8 "
+        f"{counts['fused_decode_step_int8']}, bf16-or-fp32 cross "
+        f"{counts['fused_decode_step']}")
+    expect(counts["fused_decode_step_int8"] == 1 + counts["beam_update"]
+           and counts["fused_decode_step"] == 0,
+           f"kv quant parity launches {counts}")
+
+
+def phase_serve_decode_cross(results, card: str, profile: bool):
+    """bf16 Prismer-BASE requests at batch 8 on the per-layer decode path
+    with set_decode_cross("kernel"): 12 launches of kernel 11 in the
+    prefill and in every step; then the same requests with it off."""
+    import torch
+    from prismer_tpu_torch.models import roberta
+    from prismer_tpu_torch.models.caption import build_generate_fn
+
+    cfg, model, requests = serve_setup()
+    wrap = wrappers()
+    reqs = requests[:3]
+    timed = {}
+    roberta.set_fused_decode("off")
+    try:
+        generate = build_generate_fn(model)
+        for mode in ("kernel", "matmul", "kernel", "matmul"):
+            roberta.set_decode_cross(mode)
+            generate(*requests[0])     # warm-up
+            torch.cuda.synchronize()
+            for fn in wrap.values():
+                fn.launches = 0
+            outs, times = timed_requests(generate, reqs)
+            counts = {name: fn.launches for name, fn in wrap.items()}
+            timed.setdefault(mode, []).extend(times)
+            check_requests(reqs, outs, cfg.decoder.vocab_size)
+            n, steps = counts["grouped_cross_attention"], counts["beam_update"]
+            want = 12 * (len(reqs) + steps) if mode == "kernel" else 0
+            expect(n == want and counts["fused_decode_step"] == 0,
+                   f"decode cross {mode} launches {counts}")
+            if mode == "kernel":
+                results["grouped_cross_attention"]["launches"] = n
+                log(f"  set_decode_cross(\"kernel\"): grouped_cross_attention "
+                    f"{n} launches over {len(reqs)} requests of {steps} "
+                    f"steps in all ({n / len(reqs):.0f} per request)")
+    finally:
+        roberta.set_decode_cross("matmul")
+        roberta.set_fused_decode("auto")
+    for mode, times in timed.items():
+        log(f"  per-layer decode, decode cross {mode}, batch 8: "
+            f"{sum(times) / len(times):.1f} ms/request "
+            f"({' '.join(f'{t:.1f}' for t in times)}) ({card})")
+
+
+def _serve_size(results, card, label, model_name, res, quant_modes, profile):
+    """bf16 captioning requests at batch 8 (beam 3, max 20) on a registry
+    model through build_generate_fn, fused decode, for each kv-quant mode:
+    ms per request, peak memory, the encode / beam-search split, every
+    serving kernel launched."""
+    import torch
+    from prismer_tpu_torch.models import roberta
+    from prismer_tpu_torch.models.caption import build_generate_fn
+    from prismer_tpu_torch.models.prismer import build_random_prismer
+
+    cfg = model_config(model_name, res, "bfloat16")
+    t0 = time.perf_counter()
+    model = build_random_prismer(cfg, SEED, "cuda")
+    log(f"  built bf16 Prismer-{label} ({cfg.vision.name}, {res} px, "
+        f"{cfg.vision.rgb_tokens + cfg.vision.resampler_latents} encoder "
+        f"tokens) in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params)")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    reqs = []
+    for _ in range(3):
+        prompt = torch.randint(4, 1000, (8, 4), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        reqs.append((raw_batch(cfg, 8, gen, "cuda"), prompt,
+                     torch.ones_like(prompt)))
+    generate = build_generate_fn(model)
+    wrap = wrappers()
+    for quant in quant_modes:
+        roberta.set_kv_quant(quant)
+        try:
+            generate(*reqs[0])         # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in wrap.values():
+                fn.launches = 0
+            outs, times = timed_requests(generate, reqs)
+            counts = {name: fn.launches for name, fn in wrap.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if profile or label == "HUGE":
+                split_request(model, reqs[0], f"Prismer-{label} kv quant "
+                              f"{quant}, batch 8", card)
+            if profile:
+                profile_request(generate, reqs[0], f"Prismer-{label} kv quant "
+                                f"{quant}, batch 8", card)
+        finally:
+            roberta.set_kv_quant("off")
+        check_requests(reqs, outs, cfg.decoder.vocab_size)
+        step_kernel = ("fused_decode_step_int8" if quant == "int8"
+                       else "fused_decode_step")
+        path = ("flash_attention_packed", "flash_attention", "beam_update",
+                step_kernel, "lm_topk")
+        expect(all(counts[n] > 0 for n in path)
+               and counts[step_kernel] == counts["beam_update"],
+               f"Prismer-{label} kv quant {quant} launches {counts}")
+        if quant == "int8":
+            results["fused_decode_step_int8"]["launches"] = counts[step_kernel]
+        ms = sum(times) / len(times)
+        log(f"  Prismer-{label} kv quant {quant}, batch 8: {ms:.1f} "
+            f"ms/request ({' '.join(f'{t:.1f}' for t in times)}), "
+            f"{8000.0 / ms:.1f} images/s, peak memory {peak:.2f} GiB; "
+            f"launches " + ", ".join(f"{n}={counts[n]}" for n in path)
+            + f" ({card})")
+    del model, generate
+    torch.cuda.empty_cache()
+
+
+def phase_serve_large(results, card: str, profile: bool):
+    """Prismer-LARGE (ViT-L/14 at 336 px), six experts, bf16, batch 8."""
+    _serve_size(results, card, "LARGE", "prismer_large", 336, ("off",),
+                profile)
+
+
+def phase_serve_huge(results, card: str, profile: bool):
+    """Prismer-HUGE (ViT-H/14 at 480 px, 1220 encoder tokens), six experts,
+    bf16, batch 8, int8 cross K/V off and then on."""
+    _serve_size(results, card, "HUGE", "prismer_huge", 480, ("off", "int8"),
+                profile)
 
 
 # ---------------------------------------------------------------------------
@@ -1802,11 +2297,13 @@ def split_segment(model, x, card: str) -> None:
         for i, p in enumerate(parts)) + f" ({card})")
 
 
-def phase_segment(results, card: str, profile: bool):
+def phase_segment(results, card: str, profile: bool, tf32_defaults):
     """The generator's entry point on the card over 37 synthetic PNGs of
-    mixed sizes at batch 16: kernel 10 launches 6 x 3 times, every label
-    map has its image's size and ids < 133; then the batch-16 forward's
-    time."""
+    mixed sizes at batch 16, called with both TF32 flags at torch's
+    defaults (`tf32_defaults`): its forward must see both False, and the
+    flags must read the defaults again after it. Kernel 10 launches 6 x 3
+    times, every label map has its image's size and ids < 133; then the
+    batch-16 forward's time in fp32."""
     import contextlib
     import io
     import shutil
@@ -1817,6 +2314,26 @@ def phase_segment(results, card: str, profile: bool):
     from prismer_tpu_torch.data import png
     from prismer_tpu_torch.experts import generate
     from prismer_tpu_torch.experts.ops.deform_attn import ms_deform_attn
+
+    def flags():
+        return (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+
+    seen = []
+    real_load = generate.load_expert_model
+
+    def recording_load(*a, **kw):
+        """load_expert_model whose model records the TF32 flags at each
+        forward"""
+        model, preprocess = real_load(*a, **kw)
+        forward = model.forward
+
+        def recorded(*x, **k):
+            seen.append(flags())
+            return forward(*x, **k)
+
+        model.forward = recorded
+        return model, preprocess
 
     (ROOT / "build").mkdir(exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="segment_", dir=ROOT / "build"))
@@ -1832,13 +2349,25 @@ def phase_segment(results, card: str, profile: bool):
         for fn in wrappers().values():
             fn.launches = 0
         out_buf = io.StringIO()
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32_defaults
+        generate.load_expert_model = recording_load
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out_buf):
-            rc = generate.main(["--task", "seg_coco", "--data_path",
-                                str(tmp / "data"), "--save_path",
-                                str(tmp / "labels"), "--batch_size",
-                                str(SEG_BATCH)])
+        try:
+            with contextlib.redirect_stdout(out_buf):
+                rc = generate.main(["--task", "seg_coco", "--data_path",
+                                    str(tmp / "data"), "--save_path",
+                                    str(tmp / "labels"), "--batch_size",
+                                    str(SEG_BATCH)])
+        finally:
+            generate.load_expert_model = real_load
         total = time.perf_counter() - t0
+        after = flags()
+        log(f"  TF32 flags (matmul, cudnn): {tf32_defaults} before main(), "
+            f"{sorted(set(seen))} in its {len(seen)} forwards, {after} after")
+        expect(seen and set(seen) == {(False, False)},
+               f"the generator's forward ran with TF32 flags {set(seen)}")
+        expect(after == tf32_defaults, "main() left the TF32 flags changed")
         results["ms_deform_attn"]["launches"] = ms_deform_attn.launches
         lines = out_buf.getvalue().splitlines()
         for line in lines:
@@ -1863,6 +2392,9 @@ def phase_segment(results, card: str, profile: bool):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # the forward's device time in fp32, as the generator runs it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     model = _SEG["model"]
     x = seg_input(SEG_BATCH, SEED + 12).cuda()
     torch.cuda.reset_peak_memory_stats()
@@ -1915,12 +2447,34 @@ KERNELS = (
      "prismer_tpu/ops/ln_proj.py:127"),
     ("adaptor_fused", "prismer_tpu_torch/csrc/ln_proj.cu",
      "prismer_tpu/ops/ln_proj.py:242"),
+    ("grouped_cross_attention", "prismer_tpu_torch/csrc/decode_attention.cu",
+     "prismer_tpu/ops/decode_attention.py:210"),
+    ("grouped_decode_attention", "prismer_tpu_torch/csrc/decode_attention.cu",
+     "prismer_tpu/ops/decode_attention.py:134"),
+    ("fused_decode_step_int8", "prismer_tpu_torch/csrc/fused_decode.cu",
+     "prismer_tpu/ops/fused_decode.py:637"),
 )
+
+
+class _Int8Steps:
+    """The int8 fused step's launch count (kernel 4b), which the
+    fused_decode_step wrapper keeps apart from kernel 4's."""
+
+    @property
+    def launches(self):
+        from prismer_tpu_torch.ops import fused_decode as fd
+        return fd.fused_decode_step.int8_launches
+
+    @launches.setter
+    def launches(self, value):
+        from prismer_tpu_torch.ops import fused_decode as fd
+        fd.fused_decode_step.int8_launches = value
 
 
 def wrappers():
     from prismer_tpu_torch.experts.ops import deform_attn as da
     from prismer_tpu_torch.ops import beam_update as bu
+    from prismer_tpu_torch.ops import decode_attention as dca
     from prismer_tpu_torch.ops import flash_attention as fa
     from prismer_tpu_torch.ops import fused_ce as fc
     from prismer_tpu_torch.ops import fused_decode as fd
@@ -1939,7 +2493,10 @@ def wrappers():
             "ms_deform_attn": da.ms_deform_attn,
             "fused_layer_norm": ln.fused_layer_norm,
             "ln_proj": lp.ln_proj,
-            "adaptor_fused": lp.adaptor_fused}
+            "adaptor_fused": lp.adaptor_fused,
+            "grouped_cross_attention": dca.grouped_cross_attention,
+            "grouped_decode_attention": dca.grouped_decode_attention,
+            "fused_decode_step_int8": _Int8Steps()}
 
 
 def main(argv=None) -> int:
@@ -1962,9 +2519,13 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
 
-    # phase 0: card and settings
+    # phase 0: card and settings. The parity phases compare fp32 on the card
+    # with the CPU, so TF32 is off until the segmentation generator, which
+    # runs with torch's defaults and pins fp32 itself
     card = card_info()
     log(f"card: {card}")
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -1984,10 +2545,19 @@ def main(argv=None) -> int:
               ("ln_proj parity", phase_ln_proj_parity),
               ("serve ln_proj",
                lambda r: phase_serve_ln_proj(r, card, args.profile)),
+              ("decode cross parity", phase_decode_cross_parity),
+              ("serve decode cross",
+               lambda r: phase_serve_decode_cross(r, card, args.profile)),
+              ("kv quant parity", phase_kv_quant_parity),
+              ("serve large",
+               lambda r: phase_serve_large(r, card, args.profile)),
+              ("serve huge",
+               lambda r: phase_serve_huge(r, card, args.profile)),
               ("train parity", phase_train_parity),
               ("train", lambda r: phase_train(r, card, args.profile)),
               ("segment parity", phase_segment_parity),
-              ("segment", lambda r: phase_segment(r, card, args.profile)))
+              ("segment", lambda r: phase_segment(r, card, args.profile,
+                                                  tf32_defaults)))
     for name, fn in phases:
         log(f"phase {name}")
         t0 = time.perf_counter()
@@ -2025,6 +2595,8 @@ def phase_kernels(results):
     check_layer_norm(results)
     check_ln_proj(results)
     check_adaptor_fused(results)
+    check_fused_decode_huge(results)
+    check_decode_attention(results)
 
 
 if __name__ == "__main__":

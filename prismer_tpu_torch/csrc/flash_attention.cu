@@ -28,6 +28,20 @@
 //     cores have no full-fp32 product. One thread owns one query row (no
 //     cross-thread softmax reduction); K/V tiles sit in shared memory as
 //     fp32 and are read as broadcasts, four values per load.
+// Head dims: every one of the model registry's, 64 and 96 (Prismer-BASE),
+// 80 (ViT-H/14's trunk), 128 and 160 (the LARGE and HUGE resamplers).
+// None of the index arithmetic assumes a power of two: rows are cut into
+// 16-byte vectors and 8-wide mma tiles, and every head dim is a multiple
+// of 16. What the wide ones change:
+//   * bf16: Q is staged through the K tile's shared memory (its fragments
+//     then live in registers), so Q, K and V^T fit the 48 KB of static
+//     shared memory up to Dh 160; per thread, Dh / 2 fp32 output values
+//     plus Dh / 4 Q fragment words stay in registers (120 at Dh 160);
+//   * fp32: above Dh 96 a thread's query row moves from registers to
+//     shared memory (row stride Dh + 1, so the 32 rows a warp reads at once
+//     sit in distinct banks), a block takes 32 rows and a key tile 8 keys,
+//     so that the thread's Dh accumulators stay in registers and the
+//     unrolled tile loops index them with constants (ptxas -v: no spills).
 // Not yet done (later work): wgmma, TMA loads, double-buffered tiles, and
 // splitting long K across blocks for few-query shapes (the resampler's 64
 // latents give only B*H blocks).
@@ -47,7 +61,6 @@ namespace {
 constexpr float kMaskFill = -1.0e9f;   // flash_attention.py:54 NEG_INF
 constexpr float kMInit = -1.0e30f;     // below any score, finite
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBQ = 64;                // query rows (= threads) per block
 
 struct Params {
   const void* q;
@@ -70,28 +83,39 @@ struct Params {
 // fp32 FMA kernel
 // ---------------------------------------------------------------------------
 
-template <int DH, int BK>
-__global__ void __launch_bounds__(kBQ)
+// BQ query rows (= threads) per block; a row's q in registers up to Dh 96,
+// in shared memory above
+template <int DH, int BK, int BQ>
+__global__ void __launch_bounds__(BQ)
 flash_fwd_f32_kernel(const Params p) {
   static_assert(DH % 4 == 0, "head dim must be a multiple of 4");
+  constexpr bool kQShared = DH > 96;
+  constexpr int QR = kQShared ? BQ : 1;       // rows of the shared q tile
+  constexpr int QC = kQShared ? DH + 1 : 1;
   __shared__ __align__(16) float ks[BK][DH];
   __shared__ __align__(16) float vs[BK][DH];
+  __shared__ float qsm[QR][QC];
   __shared__ int valid[BK];   // 1 keep, 0 masked (-1e9), -1 past Lk (skip)
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int row = blockIdx.x * kBQ + threadIdx.x;
+  const int row = blockIdx.x * BQ + threadIdx.x;
   const bool active = row < p.Lq;
 
   const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
 
-  float q[DH];
+  float q[kQShared ? 1 : DH];
   float acc[DH];
 #pragma unroll
   for (int d = 0; d < DH; ++d) {
-    q[d] = active ? qb[row * p.q_sl + d] : 0.0f;
+    const float x = active ? qb[row * p.q_sl + d] : 0.0f;
+    if constexpr (kQShared) {
+      qsm[threadIdx.x][d] = x;   // read back by this thread only
+    } else {
+      q[d] = x;
+    }
     acc[d] = 0.0f;
   }
   float m = kMInit;
@@ -100,7 +124,7 @@ flash_fwd_f32_kernel(const Params p) {
 
   for (int k0 = 0; k0 < p.Lk; k0 += BK) {
     __syncthreads();   // previous tile fully consumed
-    for (int e = threadIdx.x; e < BK * DH; e += kBQ) {
+    for (int e = threadIdx.x; e < BK * DH; e += BQ) {
       const int r = e / DH;
       const int c = e - r * DH;
       const int col = k0 + r;
@@ -112,7 +136,7 @@ flash_fwd_f32_kernel(const Params p) {
       ks[r][c] = kv;
       vs[r][c] = vv;
     }
-    for (int r = threadIdx.x; r < BK; r += kBQ) {
+    for (int r = threadIdx.x; r < BK; r += BQ) {
       const int col = k0 + r;
       int f = -1;
       if (col < p.Lk) {
@@ -126,19 +150,37 @@ flash_fwd_f32_kernel(const Params p) {
     __syncthreads();
     if (!active) continue;
 
-    // s = q . k_j for BK keys: BK independent accumulators
+    // s = q . k_j for BK keys: BK independent accumulators, each summed
+    // over d in order
     float s[BK];
 #pragma unroll
     for (int j = 0; j < BK; ++j) s[j] = 0.0f;
-#pragma unroll
-    for (int d = 0; d < DH; d += 4) {
+    if constexpr (kQShared) {
+      // one key at a time, q re-read from shared memory for each (volatile:
+      // held in registers across the keys it would take Dh more of them)
+      const volatile float* qrow = qsm[threadIdx.x];
 #pragma unroll
       for (int j = 0; j < BK; ++j) {
-        const float4 kk = *reinterpret_cast<const float4*>(&ks[j][d]);
-        s[j] = fmaf(q[d], kk.x, s[j]);
-        s[j] = fmaf(q[d + 1], kk.y, s[j]);
-        s[j] = fmaf(q[d + 2], kk.z, s[j]);
-        s[j] = fmaf(q[d + 3], kk.w, s[j]);
+#pragma unroll
+        for (int d = 0; d < DH; d += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(&ks[j][d]);
+          s[j] = fmaf(qrow[d], kk.x, s[j]);
+          s[j] = fmaf(qrow[d + 1], kk.y, s[j]);
+          s[j] = fmaf(qrow[d + 2], kk.z, s[j]);
+          s[j] = fmaf(qrow[d + 3], kk.w, s[j]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int d = 0; d < DH; d += 4) {
+#pragma unroll
+        for (int j = 0; j < BK; ++j) {
+          const float4 kk = *reinterpret_cast<const float4*>(&ks[j][d]);
+          s[j] = fmaf(q[d], kk.x, s[j]);
+          s[j] = fmaf(q[d + 1], kk.y, s[j]);
+          s[j] = fmaf(q[d + 2], kk.z, s[j]);
+          s[j] = fmaf(q[d + 3], kk.w, s[j]);
+        }
       }
     }
     float tile_max = kMInit;
@@ -217,9 +259,12 @@ flash_fwd_mma_kernel(const Params p) {
   constexpr int NKK = DH / 16; // k-steps of QK^T
   constexpr int NDT = DH / 8;  // 8-wide output tiles
   constexpr int VEC = 8;       // bf16 per 16-byte load
-  __shared__ __align__(16) __nv_bfloat16 qs[BQ * QS];
+  static_assert(BQ == BK, "Q is staged through the K tile");
+  // Q passes through ks once: its fragments are read into registers before
+  // the first K tile overwrites it (the loop starts with a barrier)
   __shared__ __align__(16) __nv_bfloat16 ks[BK * QS];
   __shared__ __align__(16) __nv_bfloat16 vt[DH * VS];
+  __nv_bfloat16* qs = ks;
   __shared__ int valid[BK];    // 1 keep, 0 masked (-1e9), -1 past Lk (skip)
 
   const int tid = threadIdx.x;
@@ -420,10 +465,10 @@ bool mma_aligned(const Params& p) {
   return true;
 }
 
-template <int DH, int BK>
+template <int DH, int BK, int BQ>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.Lq + kBQ - 1) / kBQ, p.H, p.B);
-  flash_fwd_f32_kernel<DH, BK><<<grid, kBQ, 0, stream>>>(p);
+  const dim3 grid((p.Lq + BQ - 1) / BQ, p.H, p.B);
+  flash_fwd_f32_kernel<DH, BK, BQ><<<grid, BQ, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -443,10 +488,23 @@ extern "C" int prismer_flash_attention(
            q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
            o_sb, o_sh, o_sl, mask_sb, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && Dh == 64) return launch_f32<64, 32>(p, s);
-  if (dtype == 0 && Dh == 96) return launch_f32<96, 16>(p, s);
-  if (dtype == 1 && !mma_aligned(p)) return cudaErrorInvalidValue;
-  if (dtype == 1 && Dh == 64) return launch_mma<64>(p, s);
-  if (dtype == 1 && Dh == 96) return launch_mma<96>(p, s);
-  return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    switch (Dh) {
+      case 64: return launch_f32<64, 32, 64>(p, s);
+      case 80: return launch_f32<80, 16, 64>(p, s);
+      case 96: return launch_f32<96, 16, 64>(p, s);
+      case 128: return launch_f32<128, 8, 32>(p, s);
+      case 160: return launch_f32<160, 8, 32>(p, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != 1 || !mma_aligned(p)) return cudaErrorInvalidValue;
+  switch (Dh) {
+    case 64: return launch_mma<64>(p, s);
+    case 80: return launch_mma<80>(p, s);
+    case 96: return launch_mma<96>(p, s);
+    case 128: return launch_mma<128>(p, s);
+    case 160: return launch_mma<160>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -24,8 +24,9 @@
 //
 // Ownership (no float atomics, so two runs are bit-identical): one block
 // owns a 64-key tile of one (batch, head) and streams 32-row query tiles
-// for dk/dv; one block owns a 64-row query tile and streams 32-key tiles
-// for dq. Every causal tile is visited (at the decoder's L <= 30 there is
+// for dk/dv (a 32-key tile above Dh 128, so that a thread's dk and dv
+// accumulators, 2 x rows x Dh / 8 values, stay in registers: 80 at Dh 160);
+// one block owns a 64-row query tile and streams 32-key tiles for dq. Every causal tile is visited (at the decoder's L <= 30 there is
 // one tile anyway), which keeps a fully masked row's gradient equal to the
 // formula above.
 //
@@ -38,6 +39,11 @@
 // eight consecutive rows hit distinct banks, and each thread keeps a 4 x 4
 // block of scores (and of dp) or a 4-row slice of its block's dq / dk / dv
 // in registers. Tensor-core tiles (mma.sync or wgmma) are later work.
+//
+// Head dims: 64, 80, 96, 128 and 160 (every one of the model registry's).
+// A thread's output columns are 4-wide slices 32 apart; where Dh is not a
+// multiple of 32 (80) the last slice of some threads lies past Dh and is
+// skipped. Nothing else assumes a power of two.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -137,42 +143,49 @@ __device__ __forceinline__ void load_valid(const Params& p, int b, int k0,
 }
 
 // s[r][c] = q_i . k_j and dp[r][c] = dO_i . v_j for the query rows
-// i = 4 * ty + r of qs / dos and the key rows j = tx + (C / 4) * c of ks / vs
-// (all fp32, row stride DH + 4). Eight consecutive tx read eight consecutive
-// key rows: distinct banks.
-template <int DH, int C>
+// i = 4 * ty + r of qs / dos and the key rows j = tx + (C / NCOL) * c of
+// ks / vs (all fp32, row stride DH + 4). Eight consecutive tx read eight
+// consecutive key rows: distinct banks.
+template <int DH, int C, int NCOL>
 __device__ __forceinline__ void score_tile(const float* qs, const float* dos,
                                            const float* ks, const float* vs,
-                                           int ty, int tx, float (&s)[4][4],
-                                           float (&dp)[4][4]) {
+                                           int ty, int tx,
+                                           float (&s)[4][NCOL],
+                                           float (&dp)[4][NCOL]) {
   constexpr int LD = DH + 4;
-  constexpr int CS = C / 4;
+  constexpr int CS = C / NCOL;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.f;
+    for (int c = 0; c < NCOL; ++c) s[r][c] = dp[r][c] = 0.f;
   }
   for (int d = 0; d < DH; d += 4) {
-    float4 a[4], b[4];
+    float4 a[4], b[NCOL];
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[r] = load4(qs + (4 * ty + r) * LD + d);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = load4(ks + (tx + CS * c) * LD + d);
+    for (int c = 0; c < NCOL; ++c) b[c] = load4(ks + (tx + CS * c) * LD + d);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = dot4(a[r], b[c], s[r][c]);
+      for (int c = 0; c < NCOL; ++c) s[r][c] = dot4(a[r], b[c], s[r][c]);
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[r] = load4(dos + (4 * ty + r) * LD + d);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = load4(vs + (tx + CS * c) * LD + d);
+    for (int c = 0; c < NCOL; ++c) b[c] = load4(vs + (tx + CS * c) * LD + d);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) dp[r][c] = dot4(a[r], b[c], dp[r][c]);
+      for (int c = 0; c < NCOL; ++c) dp[r][c] = dot4(a[r], b[c], dp[r][c]);
     }
   }
+}
+
+// whether a thread's 4-wide output slice at column d lies inside the head
+template <int DH>
+__device__ __forceinline__ bool in_head(int d) {
+  return DH % 32 == 0 || d < DH;
 }
 
 // p and ds of one score: i, j global row / column, f the key's validity
@@ -196,16 +209,19 @@ __device__ __forceinline__ const T* slab(const void* base, const Params& p,
 }
 
 // ---------------------------------------------------------------------------
-// dk / dv: grid (ceil(Lk / 64), H, B)
+// dk / dv: grid (ceil(Lk / OWN), H, B), OWN = 64 keys per block (32 above
+// Dh 128)
 // ---------------------------------------------------------------------------
 
-template <typename T, int DH>
+template <typename T, int DH, int OWN>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const Params p) {
   constexpr int LD = DH + 4;
-  constexpr int BK = kOwn, BQ = kStream;
+  constexpr int BK = OWN, BQ = kStream;
   constexpr int LP = BK + 4;   // row stride of the p / ds tiles
-  constexpr int NC = DH / 32;  // 4-column chunks per thread in dk / dv
+  constexpr int NC = (DH + 31) / 32;  // 4-column chunks per thread in dk / dv
+  constexpr int RPT = BK / 16;        // key rows per thread in dk / dv
+  constexpr int NCOL = BK / 16;       // key columns per thread in the scores
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;              // [BK][LD]
   float* vs = ks + BK * LD;      // [BK][LD]
@@ -229,12 +245,12 @@ flash_bwd_dkv_kernel(const Params p) {
   load_tile<T, DH, BK>(vb, p.st[2][2], k0, p.Lk, vs);
   load_valid(p, b, k0, BK, valid);
 
-  // scores: 32 x 64 tile, 8 x 16 threads; dk / dv: 64 x DH, 16 x 8 threads
+  // scores: 32 x BK tile, 8 x 16 threads; dk / dv: BK x DH, 16 x 8 threads
   const int a_ty = tid / 16, a_tx = tid % 16;
   const int b_ty = tid / 8, b_tx = tid % 8;
-  float dk[4][NC][4], dv[4][NC][4];
+  float dk[RPT][NC][4], dv[RPT][NC][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < RPT; ++r) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
 #pragma unroll
@@ -253,13 +269,13 @@ flash_bwd_dkv_kernel(const Params p) {
     }
     __syncthreads();
 
-    float s[4][4], dp[4][4];
-    score_tile<DH, BK>(qs, dos, ks, vs, a_ty, a_tx, s, dp);
+    float s[4][NCOL], dp[4][NCOL];
+    score_tile<DH, BK, NCOL>(qs, dos, ks, vs, a_ty, a_tx, s, dp);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int il = 4 * a_ty + r;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < NCOL; ++c) {
         const int jl = a_tx + 16 * c;
         float pr, ds;
         prob_grad(p, s[r][c], dp[r][c], q0 + il, k0 + jl, valid[jl],
@@ -271,18 +287,27 @@ flash_bwd_dkv_kernel(const Params p) {
     __syncthreads();
 
     // dv[j] += p[i][j] dO[i], dk[j] += ds[i][j] q[i] for this thread's rows
-    // j = 4 * b_ty + r and columns 4 * b_tx + 32 * c
+    // j = RPT * b_ty + r and columns 4 * b_tx + 32 * c
     for (int il = 0; il < BQ; ++il) {
-      const float4 pv = load4(ps + il * LP + 4 * b_ty);
-      const float4 dsv = load4(dss + il * LP + 4 * b_ty);
-      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
-      const float dr[4] = {dsv.x, dsv.y, dsv.z, dsv.w};
+      float pr[RPT], dr[RPT];
+#pragma unroll
+      for (int r = 0; r < RPT; r += 2) {
+        const float2 pv = *reinterpret_cast<const float2*>(
+            ps + il * LP + RPT * b_ty + r);
+        const float2 dsv = *reinterpret_cast<const float2*>(
+            dss + il * LP + RPT * b_ty + r);
+        pr[r] = pv.x;
+        pr[r + 1] = pv.y;
+        dr[r] = dsv.x;
+        dr[r + 1] = dsv.y;
+      }
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
+        if (!in_head<DH>(4 * b_tx + 32 * c)) continue;
         const float4 o4 = load4(dos + il * LD + 4 * b_tx + 32 * c);
         const float4 q4 = load4(qs + il * LD + 4 * b_tx + 32 * c);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
+        for (int r = 0; r < RPT; ++r) {
           dv[r][c][0] = fmaf(pr[r], o4.x, dv[r][c][0]);
           dv[r][c][1] = fmaf(pr[r], o4.y, dv[r][c][1]);
           dv[r][c][2] = fmaf(pr[r], o4.z, dv[r][c][2]);
@@ -299,12 +324,13 @@ flash_bwd_dkv_kernel(const Params p) {
   T* dkb = static_cast<T*>(p.dk) + b * p.st[5][0] + h * p.st[5][1];
   T* dvb = static_cast<T*>(p.dv) + b * p.st[6][0] + h * p.st[6][1];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = k0 + 4 * b_ty + r;
+  for (int r = 0; r < RPT; ++r) {
+    const int j = k0 + RPT * b_ty + r;
     if (j >= p.Lk) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d = 4 * b_tx + 32 * c;
+      if (!in_head<DH>(d)) continue;
       store4(dkb + j * p.st[5][2] + d,
              make_float4(dk[r][c][0] * p.scale, dk[r][c][1] * p.scale,
                          dk[r][c][2] * p.scale, dk[r][c][3] * p.scale));
@@ -324,7 +350,7 @@ flash_bwd_dq_kernel(const Params p) {
   constexpr int LD = DH + 4;
   constexpr int BQ = kOwn, BK = kStream;
   constexpr int LS = BK + 4;   // row stride of the ds tile
-  constexpr int NC = DH / 32;
+  constexpr int NC = (DH + 31) / 32;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;              // [BQ][LD]
   float* dos = qs + BQ * LD;     // [BQ][LD]
@@ -372,7 +398,7 @@ flash_bwd_dq_kernel(const Params p) {
     __syncthreads();
 
     float s[4][4], dp[4][4];
-    score_tile<DH, BK>(qs, dos, ks, vs, a_ty, a_tx, s, dp);
+    score_tile<DH, BK, 4>(qs, dos, ks, vs, a_ty, a_tx, s, dp);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int il = 4 * a_ty + r;
@@ -395,6 +421,7 @@ flash_bwd_dq_kernel(const Params p) {
       for (int r = 0; r < 4; ++r) dr[r] = dss[(4 * c_ty + r) * LS + jl];
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
+        if (!in_head<DH>(4 * c_tx + 32 * c)) continue;
         const float4 k4 = load4(ks + jl * LD + 4 * c_tx + 32 * c);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
@@ -414,6 +441,7 @@ flash_bwd_dq_kernel(const Params p) {
     if (i >= p.Lq) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
+      if (!in_head<DH>(4 * c_tx + 32 * c)) continue;
       store4(dqb + i * p.st[4][2] + 4 * c_tx + 32 * c,
              make_float4(dq[r][c][0] * p.scale, dq[r][c][1] * p.scale,
                          dq[r][c][2] * p.scale, dq[r][c][3] * p.scale));
@@ -421,11 +449,15 @@ flash_bwd_dq_kernel(const Params p) {
   }
 }
 
-template <int DH>
+template <int DH, int OWN>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (2 * kOwn * (DH + 4) + 2 * kStream * (DH + 4) +
-                          2 * kStream * (kOwn + 4) + 2 * kStream + kOwn);
+  return sizeof(float) * (2 * OWN * (DH + 4) + 2 * kStream * (DH + 4) +
+                          2 * kStream * (OWN + 4) + 2 * kStream + OWN);
 }
+
+// keys a dk/dv block owns
+template <int DH>
+constexpr int dkv_own() { return DH > 128 ? 32 : kOwn; }
 
 template <int DH>
 constexpr size_t dq_smem() {
@@ -444,14 +476,16 @@ cudaError_t grant_smem(K kernel, size_t bytes) {
 template <typename T, int DH>
 cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   static bool granted = false;
-  constexpr size_t smem = dkv_smem<DH>();
+  constexpr int own = dkv_own<DH>();
+  constexpr size_t smem = dkv_smem<DH, own>();
   if (!granted) {
-    const cudaError_t err = grant_smem(flash_bwd_dkv_kernel<T, DH>, smem);
+    const cudaError_t err =
+        grant_smem(flash_bwd_dkv_kernel<T, DH, own>, smem);
     if (err != cudaSuccess) return err;
     granted = true;
   }
-  const dim3 grid((p.Lk + kOwn - 1) / kOwn, p.H, p.B);
-  flash_bwd_dkv_kernel<T, DH><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid((p.Lk + own - 1) / own, p.H, p.B);
+  flash_bwd_dkv_kernel<T, DH, own><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -484,6 +518,20 @@ bool aligned(const Params& p) {
   return true;
 }
 
+template <typename T>
+int launch_dh(bool dkv, int Dh, const Params& p, cudaStream_t st) {
+  switch (Dh) {
+    case 64: return dkv ? launch_dkv<T, 64>(p, st) : launch_dq<T, 64>(p, st);
+    case 80: return dkv ? launch_dkv<T, 80>(p, st) : launch_dq<T, 80>(p, st);
+    case 96: return dkv ? launch_dkv<T, 96>(p, st) : launch_dq<T, 96>(p, st);
+    case 128:
+      return dkv ? launch_dkv<T, 128>(p, st) : launch_dq<T, 128>(p, st);
+    case 160:
+      return dkv ? launch_dkv<T, 160>(p, st) : launch_dq<T, 160>(p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 int launch(bool dkv, const void* q, const void* k, const void* v,
            const void* dout, const float* lse, const float* delta,
            const int* key_mask, void* dq, void* dk, void* dv, int B, int H,
@@ -497,18 +545,8 @@ int launch(bool dkv, const void* q, const void* k, const void* v,
   }
   if (!aligned(p)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
-  if (dkv) {
-    if (dtype == 0 && Dh == 64) return launch_dkv<float, 64>(p, st);
-    if (dtype == 0 && Dh == 96) return launch_dkv<float, 96>(p, st);
-    if (dtype == 1 && Dh == 64) return launch_dkv<bf16, 64>(p, st);
-    if (dtype == 1 && Dh == 96) return launch_dkv<bf16, 96>(p, st);
-  } else {
-    if (dtype == 0 && Dh == 64) return launch_dq<float, 64>(p, st);
-    if (dtype == 0 && Dh == 96) return launch_dq<float, 96>(p, st);
-    if (dtype == 1 && Dh == 64) return launch_dq<bf16, 64>(p, st);
-    if (dtype == 1 && Dh == 96) return launch_dq<bf16, 96>(p, st);
-  }
+  if (dtype == 0) return launch_dh<float>(dkv, Dh, p, st);
+  if (dtype == 1) return launch_dh<__nv_bfloat16>(dkv, Dh, p, st);
   return cudaErrorInvalidValue;
 }
 

@@ -27,6 +27,16 @@
 //   * cross-attention runs one block per (sample, head) and reads that
 //     sample's K/V slice once for all its beams (the TPU kernel's beam
 //     grouping, without its 8-row padding and 0/1 selector matmuls);
+//   * int8 cross K/V (the JAX package's set_kv_quant("int8"), kernel 4b)
+//     halve the largest stream of the step: the cross kernel reads 8 int8
+//     values per 8-byte lane load (so a lane holds as many values of a row,
+//     and as many registers, as in bf16, where 16 per lane spilled at
+//     4 beams and up), widens them (exact: |x| <= 127), and folds
+//     the fp32 per-(sample, head) scales in at the TPU kernel's two
+//     rounding points (fused_decode.py:444-479): q * k_scale in fp32,
+//     rounded to the compute dtype, before the scores; the normalised
+//     probabilities * v_scale in fp32, rounded, before the PV sum. The
+//     streamed tensor is never rescaled element by element;
 //   * each LayerNorm is one short kernel, one warp per row, the row held in
 //     registers; the projections read its output as a plain input tile;
 //   * the beam reorder rides on the self-attention read: block (row, head)
@@ -40,11 +50,12 @@
 // step, no grid-wide barriers to deadlock, no per-phase register budget
 // shared across phases. A cooperative persistent kernel or a CUDA graph would
 // remove the launch gaps; that is later work, as are tensor-core tiles for
-// the projections and the int8 cross-KV variant.
+// the FMA (fp32) projections.
 //
 // Layouts (ops/fused_decode.py says the same):
 //   hidden (N, D); self caches (NL, T, N, D), so a step's column is one
-//   contiguous (N, D) slab; cross K/V natural and unpadded, (NLc, B, L, D);
+//   contiguous (N, D) slab; cross K/V natural and unpadded, (NLc, B, L, D),
+//   in the compute dtype or int8 with fp32 scales (NLc, B, H);
 //   weights packed per layer, each matrix (out, in) row-major:
 //     cross layer:  Wqkv (3D, D) | Wso | Wcq | Wco | Wad | Wau (D, D) |
 //                   W1 (F, D) | W2 (D, F)
@@ -55,6 +66,7 @@
 //     output layer: bqkv 3D | bso | ln1 s, b | b1 F | b2 | ln3 s, b
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -443,24 +455,54 @@ self_attn_kernel(const SelfParams<T> p) {
 // beam-grouped cross-attention: one block per (head, sample)
 // ---------------------------------------------------------------------------
 
-template <typename T>
+// One lane load of cross K/V (Raw) widened to fp32: 16 bytes of the compute
+// dtype (its Vec), or 8 int8 values (byte i of word w is element 4 w + i)
+template <typename KV>
+struct KvVec : Vec<KV> {
+  using Raw = uint4;
+};
+
+template <>
+struct KvVec<int8_t> {
+  using Raw = uint2;
+  static constexpr int kN = 8;
+  __device__ static void unpack(const uint2& v, float* out) {
+    const uint32_t w[2] = {v.x, v.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        out[4 * i + j] = static_cast<float>(
+            static_cast<int8_t>((w[i] >> (8 * j)) & 0xffu));
+      }
+    }
+  }
+};
+
+template <typename T, typename KV>
 struct CrossParams {
   const T* q;          // (N, D), N = B * beams
-  const T* k;          // this layer's (B, L, D)
-  const T* v;
+  const KV* k;         // this layer's (B, L, D)
+  const KV* v;
+  const float* ks;     // int8 K/V: this layer's (B, H) scales, else null
+  const float* vs;
   T* out;              // (N, D)
-  int B, L, D, Dh;
+  int B, H, L, D, Dh;
   float scale;
 };
 
-// A key/value row of the head (Dh values, 16 bytes per lane) is read by a
-// group of LPR = Dh / Vec<T>::kN lanes, so a warp reads 32 / LPR whole rows
-// per load, coalesced, and each lane keeps U loads in flight. K and V are
-// read once for all BEAMS beams of the sample.
-template <typename T, int BEAMS>
+// A key/value row of the head (Dh values, 16 bytes per lane; 8 in int8) is
+// read by a group of LPR = Dh / KvVec<KV>::kN lanes, so a warp reads 32 /
+// LPR whole rows per load, coalesced, and each lane keeps U loads in
+// flight. K and V are read once for all BEAMS beams of the sample. LPR must
+// be a power of two (the shuffle sums below halve it): Dh 64 in every
+// registry decoder gives 8 (bf16 and int8) and 16 (fp32); the wrapper
+// checks.
+template <typename T, typename KV, int BEAMS>
 __global__ void __launch_bounds__(kCrossThreads)
-cross_attn_kernel(const CrossParams<T> p) {
-  constexpr int V = Vec<T>::kN;
+cross_attn_kernel(const CrossParams<T, KV> p) {
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  constexpr int V = KvVec<KV>::kN;
   constexpr int U = 8;
   extern __shared__ float sm[];
   const int L = p.L;
@@ -474,34 +516,45 @@ cross_attn_kernel(const CrossParams<T> p) {
   const int b = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int sub = lane % lpr;        // which 16-byte slice of the row
+  const int sub = lane % lpr;        // which slice of the row
   const int grp = lane / lpr;        // which row of the warp's load
   const size_t kv0 = static_cast<size_t>(b) * L * D + h * Dh + sub * V;
   const int stride = kCrossWarps * rpw;
 
+  // the lane's V query values of each beam; with int8 K the K scale folds
+  // into them in fp32, rounded to the compute dtype
   float qv[BEAMS][V];
 #pragma unroll
   for (int j = 0; j < BEAMS; ++j) {
-    Vec<T>::load(p.q + static_cast<size_t>(b * BEAMS + j) * D + h * Dh +
-                 sub * V, qv[j]);
+#pragma unroll
+    for (int i = 0; i < V; i += Vec<T>::kN) {
+      Vec<T>::load(p.q + static_cast<size_t>(b * BEAMS + j) * D + h * Dh +
+                   sub * V + i, qv[j] + i);
+    }
+    if constexpr (kQuant) {
+      const float ks = p.ks[b * p.H + h];
+#pragma unroll
+      for (int i = 0; i < V; ++i) qv[j][i] = round_to<T>(qv[j][i] * ks);
+    }
   }
 
   // scores (the loop bound is warp-uniform: every lane takes part in the
   // shuffles)
+  using Raw = typename KvVec<KV>::Raw;
   for (int lw = warp * rpw; lw < L; lw += stride * U) {
     const int l0 = lw + grp;
-    uint4 raw[U];
+    Raw raw[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int l = l0 + u * stride;
-      if (l < L) raw[u] = *reinterpret_cast<const uint4*>(
+      if (l < L) raw[u] = *reinterpret_cast<const Raw*>(
           p.k + kv0 + static_cast<size_t>(l) * D);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int l = l0 + u * stride;
       float kv[V];
-      Vec<T>::unpack(raw[u], kv);
+      KvVec<KV>::unpack(raw[u], kv);
       float part[BEAMS];
 #pragma unroll
       for (int j = 0; j < BEAMS; ++j) {
@@ -527,7 +580,9 @@ cross_attn_kernel(const CrossParams<T> p) {
   }
   __syncthreads();
 
-  // softmax of each beam row, one warp per row
+  // softmax of each beam row, one warp per row; with int8 V the V scale
+  // folds into the normalised probabilities before their rounding
+  const float vsc = kQuant ? p.vs[b * p.H + h] : 1.f;
   for (int j = warp; j < BEAMS; j += kCrossWarps) {
     float* r = ss + j * L;
     float m = -INFINITY;
@@ -540,7 +595,9 @@ cross_attn_kernel(const CrossParams<T> p) {
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int l = lane; l < L; l += 32) r[l] = round_to<T>(r[l] / sum);
+    for (int l = lane; l < L; l += 32) {
+      r[l] = kQuant ? round_to<T>(r[l] / sum * vsc) : round_to<T>(r[l] / sum);
+    }
   }
   __syncthreads();
 
@@ -553,11 +610,11 @@ cross_attn_kernel(const CrossParams<T> p) {
   }
   for (int lw = warp * rpw; lw < L; lw += stride * U) {
     const int l0 = lw + grp;
-    uint4 raw[U];
+    Raw raw[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int l = l0 + u * stride;
-      if (l < L) raw[u] = *reinterpret_cast<const uint4*>(
+      if (l < L) raw[u] = *reinterpret_cast<const Raw*>(
           p.v + kv0 + static_cast<size_t>(l) * D);
     }
 #pragma unroll
@@ -565,7 +622,7 @@ cross_attn_kernel(const CrossParams<T> p) {
       const int l = l0 + u * stride;
       if (l < L) {
         float vv[V];
-        Vec<T>::unpack(raw[u], vv);
+        KvVec<KV>::unpack(raw[u], vv);
 #pragma unroll
         for (int j = 0; j < BEAMS; ++j) {
           const float pj = ss[j * L + l];
@@ -605,34 +662,59 @@ cross_attn_kernel(const CrossParams<T> p) {
   }
 }
 
-template <typename T, int BEAMS>
-cudaError_t launch_cross_beams(const CrossParams<T>& p, int H,
-                               cudaStream_t st) {
+template <typename T, typename KV, int BEAMS>
+cudaError_t launch_cross_beams(const CrossParams<T, KV>& p, cudaStream_t st) {
   static size_t granted = 48 * 1024;
   const size_t smem = (static_cast<size_t>(BEAMS) * p.L +
                        static_cast<size_t>(kCrossWarps) * BEAMS * p.Dh) *
                       sizeof(float);
   const cudaError_t err =
-      allow_smem(cross_attn_kernel<T, BEAMS>, smem, &granted);
+      allow_smem(cross_attn_kernel<T, KV, BEAMS>, smem, &granted);
   if (err != cudaSuccess) return err;
-  cross_attn_kernel<T, BEAMS><<<dim3(H, p.B), kCrossThreads, smem, st>>>(p);
+  cross_attn_kernel<T, KV, BEAMS>
+      <<<dim3(p.H, p.B), kCrossThreads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_cross(const CrossParams<T>& p, int beams, int H,
+template <typename T, typename KV>
+cudaError_t launch_cross(const CrossParams<T, KV>& p, int beams,
                          cudaStream_t st) {
   switch (beams) {
-    case 1: return launch_cross_beams<T, 1>(p, H, st);
-    case 2: return launch_cross_beams<T, 2>(p, H, st);
-    case 3: return launch_cross_beams<T, 3>(p, H, st);
-    case 4: return launch_cross_beams<T, 4>(p, H, st);
-    case 5: return launch_cross_beams<T, 5>(p, H, st);
-    case 6: return launch_cross_beams<T, 6>(p, H, st);
-    case 7: return launch_cross_beams<T, 7>(p, H, st);
-    case 8: return launch_cross_beams<T, 8>(p, H, st);
+    case 1: return launch_cross_beams<T, KV, 1>(p, st);
+    case 2: return launch_cross_beams<T, KV, 2>(p, st);
+    case 3: return launch_cross_beams<T, KV, 3>(p, st);
+    case 4: return launch_cross_beams<T, KV, 4>(p, st);
+    case 5: return launch_cross_beams<T, KV, 5>(p, st);
+    case 6: return launch_cross_beams<T, KV, 6>(p, st);
+    case 7: return launch_cross_beams<T, KV, 7>(p, st);
+    case 8: return launch_cross_beams<T, KV, 8>(p, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// layer i's cross-attention, with K/V in the compute dtype or int8
+template <typename T, typename KV>
+cudaError_t run_cross(const T* q, const void* cross_k, const void* cross_v,
+                      const float* cross_ks, const float* cross_vs, T* out,
+                      int i, int B, int H, int L, int D, int beams,
+                      float scale, cudaStream_t st) {
+  const size_t ckv = static_cast<size_t>(B) * L * D;   // one layer
+  CrossParams<T, KV> cp{};
+  cp.q = q;
+  cp.k = static_cast<const KV*>(cross_k) + i * ckv;
+  cp.v = static_cast<const KV*>(cross_v) + i * ckv;
+  if (cross_ks != nullptr) {
+    cp.ks = cross_ks + static_cast<size_t>(i) * B * H;
+    cp.vs = cross_vs + static_cast<size_t>(i) * B * H;
+  }
+  cp.out = out;
+  cp.B = B;
+  cp.H = H;
+  cp.L = L;
+  cp.D = D;
+  cp.Dh = D / H;
+  cp.scale = scale;
+  return launch_cross<T, KV>(cp, beams, st);
 }
 
 // out = LN(o + res), one warp per row
@@ -662,6 +744,8 @@ struct StepArgs {
   const int* key_mask;
   const void* cross_k;
   const void* cross_v;
+  const float* cross_ks;   // int8 cross K/V: (NLc, B, H) scales, else null
+  const float* cross_vs;
   void* hidden_out;
   void* k_new;
   void* v_new;
@@ -682,7 +766,6 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
   const int N = a.N, D = a.D, F = a.F, Dh = D / a.H;
   const size_t nd = static_cast<size_t>(N) * D;
   const size_t slab = static_cast<size_t>(a.T) * nd;       // one layer cache
-  const size_t ckv = static_cast<size_t>(a.B) * a.L * D;   // one layer cross
   const size_t dd = static_cast<size_t>(D) * D;
   const size_t fd = static_cast<size_t>(F) * D;
 
@@ -767,17 +850,14 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
       T* x1 = next_x();
       RETURN_IF_ERR(dense_ln(o, res, ln1, x1, w + 4 * dd, bb + 6 * D, qkv, D,
                              kActNone));
-      CrossParams<T> cp{};
-      cp.q = qkv;
-      cp.k = static_cast<const T*>(a.cross_k) + i * ckv;
-      cp.v = static_cast<const T*>(a.cross_v) + i * ckv;
-      cp.out = att;
-      cp.B = a.B;
-      cp.L = a.L;
-      cp.D = D;
-      cp.Dh = Dh;
-      cp.scale = a.scale;
-      RETURN_IF_ERR(launch_cross<T>(cp, beams, a.H, st));
+      const cudaError_t cross_err =
+          a.cross_ks != nullptr
+              ? run_cross<T, int8_t>(qkv, a.cross_k, a.cross_v, a.cross_ks,
+                                     a.cross_vs, att, i, a.B, a.H, a.L, D,
+                                     beams, a.scale, st)
+              : run_cross<T, T>(qkv, a.cross_k, a.cross_v, nullptr, nullptr,
+                                att, i, a.B, a.H, a.L, D, beams, a.scale, st);
+      RETURN_IF_ERR(cross_err);
       RETURN_IF_ERR(dense(att, w + 5 * dd, bb + 7 * D, o, D, D, kActNone));
       // adaptor
       T* x2 = next_x();
@@ -817,16 +897,22 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
 
 // Returns a cudaError_t (0 on success). dtype: 0 fp32, 1 bf16. Without
 // flat_beam, out_k/out_v must equal self_k/self_v (the column is written in
-// place); with it, they must be other buffers. work holds
-// N * (7 D + max(D, F)) elements of the compute dtype.
+// place); with it, they must be other buffers. cross_ks / cross_vs null:
+// cross K/V in the compute dtype; given: int8 cross K/V with those fp32
+// (NLc, B, H) scales. work holds N * (7 D + max(D, F)) elements of the
+// compute dtype.
 extern "C" int prismer_fused_decode_step(
     const void* hidden0, const void* w_all, const float* b_all,
     const void* self_k, const void* self_v, void* out_k, void* out_v,
     const int* flat_beam, const int* key_mask, const void* cross_k,
-    const void* cross_v, void* hidden_out, void* k_new, void* v_new,
-    void* work, int N, int B, int D, int H, int F, int NL, int NLc, int T,
-    int L, int index, int dtype, float eps, float scale, void* stream) {
-  const int lpr = H > 0 ? D / H / (dtype == 0 ? 4 : 8) : 0;  // cross kernel
+    const void* cross_v, const float* cross_ks, const float* cross_vs,
+    void* hidden_out, void* k_new, void* v_new, void* work, int N, int B,
+    int D, int H, int F, int NL, int NLc, int T, int L, int index, int dtype,
+    float eps, float scale, void* stream) {
+  const bool quant = cross_ks != nullptr;
+  if (quant != (cross_vs != nullptr)) return cudaErrorInvalidValue;
+  // lanes per K/V row of the cross kernel: 16 bytes each (8 in int8)
+  const int lpr = H > 0 ? D / H / (dtype == 0 && !quant ? 4 : 8) : 0;
   if (N <= 0 || B <= 0 || N % B != 0 || N / B > kMaxBeams || H <= 0 ||
       D % H != 0 || D % 8 != 0 || D > kMaxLnDim || F % 8 != 0 ||
       (D / H) % 8 != 0 || lpr <= 0 || lpr > 32 || (lpr & (lpr - 1)) != 0 ||
@@ -841,8 +927,9 @@ extern "C" int prismer_fused_decode_step(
     return cudaErrorInvalidValue;
   }
   StepArgs a{hidden0, w_all, b_all, self_k, self_v, out_k, out_v,
-             flat_beam, key_mask, cross_k, cross_v, hidden_out, k_new,
-             v_new, work, N, B, D, H, F, NL, NLc, T, L, index, eps, scale};
+             flat_beam, key_mask, cross_k, cross_v, cross_ks, cross_vs,
+             hidden_out, k_new, v_new, work, N, B, D, H, F, NL, NLc, T, L,
+             index, eps, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? run_step<float>(a, st) : run_step<__nv_bfloat16>(a, st);
 }

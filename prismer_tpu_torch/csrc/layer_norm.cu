@@ -12,7 +12,7 @@
 // TFLOP/s).
 //
 // Design: one warp per row, eight rows per block. The TPU kernel moved
-// 512-row blocks through VMEM; here a row of D <= 1024 fits in a warp's
+// 512-row blocks through VMEM; here a row of D <= 1280 fits in a warp's
 // registers, so x is read from device memory once, in 16-byte slices with
 // all of a lane's loads in flight, both statistics come from warp shuffles,
 // and y leaves as 16-byte stores. Rows past R are neither read nor written.
@@ -54,7 +54,7 @@ cudaError_t run(const void* x, const float* scale, const float* bias,
 }  // namespace
 
 // x and out (R, D) row-major in x's dtype (0 fp32, 1 bf16), scale and bias
-// (D,) fp32; D a multiple of 8 and at most 1024, every pointer 16-byte
+// (D,) fp32; D a multiple of 8 and at most 1280, every pointer 16-byte
 // aligned. Returns a cudaError_t (0 on success).
 extern "C" int prismer_layer_norm(const void* x, const float* scale,
                                   const float* bias, void* out, int R, int D,

@@ -20,8 +20,9 @@
 
 namespace prismer {
 
-// the widest row a warp keeps in registers (Prismer-BASE 768, LARGE 1024)
-constexpr int kLnMaxDim = 1024;
+// the widest row a warp keeps in registers (Prismer-BASE 768, LARGE 1024,
+// HUGE 1280: a lane then holds 5 bf16 or 10 fp32 16-byte vectors)
+constexpr int kLnMaxDim = 1280;
 
 // 16 bytes of T from V fp32 values, each rounded to T
 template <typename T>

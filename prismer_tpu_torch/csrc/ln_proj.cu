@@ -33,6 +33,10 @@
 //   * adaptor_fused: a block owns 32 rows (bf16; 16 in fp32) across all D
 //     columns. It keeps LN(x) and the squared-ReLU bottleneck in shared
 //     memory and writes only x + u.
+//   Above D = 1024 (ViT-H/14's 1280) the bf16 row tiles halve, to 32 and
+//   16 rows: a 64-row ln_proj tile (168 KB) or two 32-row adaptor tiles
+//   beside the four weight stages (64 KB) would pass the 227 KB a block may
+//   have. A 16-row tile is one m16 row of warps, each warp 16 columns.
 // Weights stream through shared memory with cp.async in k slices (bf16:
 // four stages of 64 columns; fp32: three of 32), each copied while the
 // ones before it are multiplied, since the copy's latency, not the
@@ -63,11 +67,15 @@ constexpr size_t kMaxSmem = 227 * 1024;
 
 enum Act { kActNone = 0, kActQuickGelu = 1 };
 
-// rows of a block: ln_proj's row tile and the adaptor's
+// rows of a block: ln_proj's row tile and the adaptor's; `wide` is
+// D > kWideDim, where the bf16 tiles halve
+constexpr int kWideDim = 1024;
 template <typename T>
-constexpr int proj_rows() { return sizeof(T) == 2 ? 64 : 32; }
+constexpr int proj_rows(bool wide) { return sizeof(T) == 2 && !wide ? 64 : 32; }
 template <typename T>
-constexpr int adaptor_rows() { return sizeof(T) == 2 ? 32 : 16; }
+constexpr int adaptor_rows(bool wide) {
+  return sizeof(T) == 2 && !wide ? 32 : 16;
+}
 
 // row stride (elements) of a normalised row tile: bf16 rows are a multiple
 // of 64 plus 32 elements, so the 16-byte fragment reads are free of bank
@@ -201,16 +209,21 @@ __device__ __forceinline__ void stream_w(const T* __restrict__ W, int F, int D,
 
 template <int BM>
 struct Tile<bf16, BM> {
-  static constexpr int WM = BM / 2;   // rows per warp (2 x 4 warps)
-  static constexpr int MT = WM / 16;  // m16 tiles per warp
-  static constexpr int NT = 4;        // n8 tiles per warp: 32 columns
+  // warps as WR (rows) x WC (columns): 2 x 4 from 32 rows up, 1 x 8 at 16
+  static constexpr int WR = BM >= 32 ? 2 : 1;
+  static constexpr int WC = kWarps / WR;
+  static constexpr int WN = kBn / WC;  // columns per warp: 32 or 16
+  static constexpr int WM = BM / WR;   // rows per warp
+  static constexpr int MT = WM / 16;   // m16 tiles per warp
+  static constexpr int NT = WN / 8;    // n8 tiles per warp
+  static_assert(MT >= 1 && WM % 16 == 0, "row tile of 16, 32 or 64 rows");
   float acc[MT][NT][4];
 
   __device__ void product(const bf16* A, int lda, const bf16* __restrict__ W,
                           int F, int D, int col0, bf16* ws) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int gid = lane >> 2, tig = lane & 3;
-    const int wm = warp >> 2, wn = warp & 3;
+    const int wm = warp / WC, wn = warp % WC;
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -232,7 +245,7 @@ struct Tile<bf16, BM> {
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
         b[t] = *reinterpret_cast<const uint4*>(
-            wsl + (wn * 32 + t * 8 + gid) * kSub + tig * 8);
+            wsl + (wn * WN + t * 8 + gid) * kSub + tig * 8);
       }
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
@@ -253,7 +266,7 @@ struct Tile<bf16, BM> {
   __device__ void for_each(Fn f) const {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int gid = lane >> 2, tig = lane & 3;
-    const int wm = warp >> 2, wn = warp & 3;
+    const int wm = warp / WC, wn = warp % WC;
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -261,7 +274,7 @@ struct Tile<bf16, BM> {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           f(wm * WM + m * 16 + gid + (e >> 1) * 8,
-            wn * 32 + t * 8 + tig * 2 + (e & 1), acc[m][t][e]);
+            wn * WN + t * 8 + tig * 2 + (e & 1), acc[m][t][e]);
         }
   }
 };
@@ -430,11 +443,11 @@ cudaError_t grant(K kernel, size_t bytes, size_t* granted) {
   return err;
 }
 
-template <typename T>
-cudaError_t run_ln_proj(const void* x, const float* scale, const float* bias,
-                        const Proj& p, int groups, int R, int D, float eps,
-                        int act, cudaStream_t st) {
-  constexpr int BM = proj_rows<T>();
+template <typename T, int BM>
+cudaError_t run_ln_proj_rows(const void* x, const float* scale,
+                             const float* bias, const Proj& p, int groups,
+                             int R, int D, float eps, int act,
+                             cudaStream_t st) {
   static size_t granted = 48 * 1024;
   const size_t smem = (static_cast<size_t>(BM) * tile_ld<T>(D) +
                        stages<T>() * stage_elems<T>()) * sizeof(T);
@@ -448,11 +461,24 @@ cudaError_t run_ln_proj(const void* x, const float* scale, const float* bias,
 }
 
 template <typename T>
-cudaError_t run_adaptor(const void* x, const float* scale, const float* bias,
-                        const void* wd, const void* bd, const void* wu,
-                        const void* bu, void* out, int R, int D, float eps,
-                        cudaStream_t st) {
-  constexpr int BM = adaptor_rows<T>();
+cudaError_t run_ln_proj(const void* x, const float* scale, const float* bias,
+                        const Proj& p, int groups, int R, int D, float eps,
+                        int act, cudaStream_t st) {
+  return D > kWideDim
+             ? run_ln_proj_rows<T, proj_rows<T>(true)>(x, scale, bias, p,
+                                                       groups, R, D, eps, act,
+                                                       st)
+             : run_ln_proj_rows<T, proj_rows<T>(false)>(x, scale, bias, p,
+                                                        groups, R, D, eps,
+                                                        act, st);
+}
+
+template <typename T, int BM>
+cudaError_t run_adaptor_rows(const void* x, const float* scale,
+                             const float* bias, const void* wd,
+                             const void* bd, const void* wu, const void* bu,
+                             void* out, int R, int D, float eps,
+                             cudaStream_t st) {
   static size_t granted = 48 * 1024;
   const size_t smem = (2 * static_cast<size_t>(BM) * tile_ld<T>(D) +
                        stages<T>() * stage_elems<T>()) * sizeof(T);
@@ -465,6 +491,18 @@ cudaError_t run_adaptor(const void* x, const float* scale, const float* bias,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t run_adaptor(const void* x, const float* scale, const float* bias,
+                        const void* wd, const void* bd, const void* wu,
+                        const void* bu, void* out, int R, int D, float eps,
+                        cudaStream_t st) {
+  return D > kWideDim
+             ? run_adaptor_rows<T, adaptor_rows<T>(true)>(
+                   x, scale, bias, wd, bd, wu, bu, out, R, D, eps, st)
+             : run_adaptor_rows<T, adaptor_rows<T>(false)>(
+                   x, scale, bias, wd, bd, wu, bu, out, R, D, eps, st);
+}
+
 bool dims_ok(int R, int D, int dtype) {
   return R > 0 && D > 0 && D % (2 * kSub) == 0 && D <= prismer::kLnMaxDim &&
          (dtype == 0 || dtype == 1);
@@ -475,7 +513,7 @@ bool dims_ok(int R, int D, int dtype) {
 // x (R, D) in the compute dtype (0 fp32, 1 bf16); scale and bias (D,) fp32;
 // for i < n (1 to 3): w_i (f_i, D), b_i (f_i,) and out_i (R, f_i) in the
 // compute dtype (unused pointers may be null); act 0 none, 1 quick_gelu.
-// D a multiple of 64 and at most 1024, every pointer 16-byte aligned.
+// D a multiple of 64 and at most 1280, every pointer 16-byte aligned.
 // Returns a cudaError_t (0 on success).
 extern "C" int prismer_ln_proj(const void* x, const float* scale,
                                const float* bias, const void* w0,
@@ -503,7 +541,7 @@ extern "C" int prismer_ln_proj(const void* x, const float* scale,
 
 // x and out (R, D), w_down and w_up (D, D), b_down and b_up (D,), all in
 // the compute dtype (0 fp32, 1 bf16); scale and bias (D,) fp32. D a
-// multiple of 64 and at most 1024, every pointer 16-byte aligned. Returns a
+// multiple of 64 and at most 1280, every pointer 16-byte aligned. Returns a
 // cudaError_t (0 on success).
 extern "C" int prismer_adaptor_fused(const void* x, const float* scale,
                                      const float* bias, const void* wd,

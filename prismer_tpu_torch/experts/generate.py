@@ -6,7 +6,7 @@ for the segmentation experts:
       --shard_id 0 --num_shards 1 --device cuda]
 
 Globs D/*/ for images, runs the Mask2Former expert batch by batch on the
-device, and writes one grey id PNG per image at the image's original size
+device in fp32 (TF32 off for the run), and writes one grey id PNG per image at the image's original size
 under S/<task>/<parent>/<folder>/: the per-pixel argmax of the semantic
 logits (ties to the lowest class id), resized with PIL's NEAREST rule.
 Images are read with `data.png`; JPEG decoding on the machine with the card
@@ -128,7 +128,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         raise NotImplementedError(
             f"--task {args.task} is not ported to prismer_tpu_torch yet "
             f"(ROADMAP item 10, the other label experts)")
-    run_segmentation(args, args.task)
+    # the experts compute in fp32, as the JAX package does: cuDNN would
+    # otherwise run the convolutions in TF32 (torch's default). The flags
+    # are process-wide, so they are restored when the run ends.
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        run_segmentation(args, args.task)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
     return 0
 
 

@@ -14,13 +14,18 @@ Two cached decode paths, as in JAX (`set_fused_decode`):
   * per layer (fused decode off): self K and V in natural layout
     (NL, N, H, T, Dh), N = B * beams, each step writing its column in place;
     cross K/V projected once per sample, (NLc, B, H, L, Dh), shared by the
-    sample's beams (never tiled, never reordered).
+    sample's beams (never tiled, never reordered). Its grouped
+    cross-attention (prefill and every step) runs the batched products
+    ("matmul", the default, JAX's XLA einsum path) or the
+    `ops/decode_attention` kernel ("kernel", JAX's PRISMER_DECODE_CROSS=
+    pallas): `set_decode_cross`.
   * fused (the default on CUDA): one `ops/fused_decode` call per step runs
     every layer body. Self K/V (NL, T, N, D), so a step's column is one
     contiguous slab, plus a second pair of buffers for the beam reorder the
     step folds in; cross K/V natural and unpadded, (NLc, B, L, D); the
-    packed weights ride in the cache (`pack_decode_collection`).
-The int8 cross-KV variant of the JAX fused path is not ported.
+    packed weights ride in the cache (`pack_decode_collection`). With
+    `set_kv_quant("int8")` (JAX's PRISMER_KV_QUANT=int8, off by default)
+    the cached cross K/V are int8 with fp32 (NLc, B, H) scales.
 """
 
 from __future__ import annotations
@@ -59,6 +64,39 @@ def use_fused_decode(device: torch.device) -> bool:
     if _FUSED_DECODE == "auto":
         return torch.device(device).type == "cuda"
     return _FUSED_DECODE == "on"
+
+
+# int8 cross K/V on the fused decode path (kernel 4b), off by default as in
+# JAX. Read when a fused cache is built.
+_KV_QUANT = "off"
+
+
+def set_kv_quant(mode: str) -> None:
+    """'int8' | 'off'."""
+    global _KV_QUANT
+    if mode not in ("int8", "off"):
+        raise ValueError(f"kv quant mode {mode!r}")
+    _KV_QUANT = mode
+
+
+def use_kv_quant(device: torch.device) -> bool:
+    """Whether a decode cache on `device` holds int8 cross K/V: only on the
+    fused path, as JAX's `use_kv_quant`."""
+    return _KV_QUANT == "int8" and use_fused_decode(device)
+
+
+# The per-layer path's grouped cross-attention: "matmul" (the batched
+# products, JAX's default XLA path) or "kernel" (ops/decode_attention, JAX's
+# PRISMER_DECODE_CROSS=pallas). Read at each call.
+_DECODE_CROSS = "matmul"
+
+
+def set_decode_cross(mode: str) -> None:
+    """'matmul' | 'kernel'."""
+    global _DECODE_CROSS
+    if mode not in ("matmul", "kernel"):
+        raise ValueError(f"decode cross mode {mode!r}")
+    _DECODE_CROSS = mode
 
 
 def pack_decode_collection(decoder: "RobertaCausalDecoder",
@@ -122,15 +160,26 @@ class SelfAttentionCore(nn.Module):
                                                  mask_bias))
 
     def attend_grouped(self, hidden: torch.Tensor, k: torch.Tensor,
-                       v: torch.Tensor, beams: int) -> torch.Tensor:
+                       v: torch.Tensor, beams: int,
+                       kernel: bool = False) -> torch.Tensor:
         """Cross-attention of (B*beams, P, D) queries against per-sample
-        K/V (B, H, L, Dh), shared by a sample's beams."""
+        K/V (B, H, L, Dh), shared by a sample's beams; with `kernel` through
+        ops/decode_attention (kernel 11's rounding)."""
         n, p, _ = hidden.shape
         b = n // beams
         q = self.project_q(hidden)                          # (N, H, P, Dh)
         h, dh = q.shape[1], q.shape[3]
         q = q.reshape(b, beams, h, p, dh).permute(0, 2, 1, 3, 4)
-        out = dot_product_attention(q.reshape(b, h, beams * p, dh), k, v)
+        q = q.reshape(b, h, beams * p, dh)
+        if kernel:
+            from prismer_tpu_torch.ops.decode_attention import \
+                grouped_cross_attention
+            # the kernel reads contiguous rows: a no-op for the decode
+            # cache, one copy of the prompt's head-split K/V in the prefill
+            out = grouped_cross_attention(q.contiguous(), k.contiguous(),
+                                          v.contiguous(), "cross_t")
+        else:
+            out = dot_product_attention(q, k, v)
         out = out.reshape(b, h, beams, p, dh).permute(0, 2, 1, 3, 4)
         return merge_heads(out.reshape(n, h, p, dh))
 
@@ -203,7 +252,8 @@ class DecoderLayer(nn.Module):
 
     def prefill(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
                 cross_k: Optional[torch.Tensor],
-                cross_v: Optional[torch.Tensor], beams: int = 1
+                cross_v: Optional[torch.Tensor], beams: int = 1,
+                cross_kernel: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Full pass over the prompt: (hidden, k, v), k/v (N, H, P, Dh).
         hidden may be beam-tiled while cross K/V stay per sample."""
@@ -212,7 +262,8 @@ class DecoderLayer(nn.Module):
         h = merge_heads(attention(q, k, v, attention_mask, causal=True))
         hidden = self.self_out(h, hidden)
         if self.with_cross:
-            h = self.cross_attn.attend_grouped(hidden, cross_k, cross_v, beams)
+            h = self.cross_attn.attend_grouped(hidden, cross_k, cross_v, beams,
+                                               cross_kernel)
             hidden = self.adaptor(self.cross_out(h, hidden))
         return self.mlp(hidden), k, v
 
@@ -225,7 +276,8 @@ class DecoderLayer(nn.Module):
         h = self.self_attn.attend_t(hidden, k_cache, v_cache, key_mask_bias)
         hidden = self.self_out(h, hidden)
         if self.with_cross:
-            h = self.cross_attn.attend_grouped(hidden, cross_k, cross_v, beams)
+            h = self.cross_attn.attend_grouped(hidden, cross_k, cross_v, beams,
+                                               _DECODE_CROSS == "kernel")
             hidden = self.adaptor(self.cross_out(h, hidden))
         return self.mlp(hidden)
 
@@ -366,10 +418,18 @@ class RobertaCausalDecoder(nn.Module):
         features (N, D) there instead (the ops/lm_topk path). Pass the
         untiled encoder states (B, L, D) with beam-tiled ids/mask (B*beams
         rows). On the fused path the cache carries `packed` (from
-        `pack_decode_collection`), or packs the weights itself."""
+        `pack_decode_collection`), or packs the weights itself, and with
+        `use_kv_quant` int8 cross K/V plus their scales ("cross_ks",
+        "cross_vs"). The prompt's own cross-attention reads the unrounded
+        K/V, and on the fused path always runs the batched products (JAX's
+        `attend_grouped_nat`)."""
         c = self.cfg
         n, p = input_ids.shape
         fused = use_fused_decode(input_ids.device)
+        quant = use_kv_quant(input_ids.device)
+        if quant:
+            from prismer_tpu_torch.ops.fused_decode import quantize_kv
+        cross_kernel = not fused and _DECODE_CROSS == "kernel"
         pos = create_position_ids(input_ids, attention_mask, c.pad_token_id)
         hidden = self.embeddings(input_ids, pos)
         enc = encoder_hidden_states.to(self.dtype)
@@ -382,18 +442,26 @@ class RobertaCausalDecoder(nn.Module):
             self_k = torch.zeros((nl, n, h, max_len, dh), dtype=self.dtype,
                                  device=hidden.device)
         self_v = torch.zeros_like(self_k)
-        cross_k, cross_v = [], []
+        cross_k, cross_v, cross_ks, cross_vs = [], [], [], []
         for i, layer in enumerate(self.cross_layers() + [self.output_layer]):
             ck = cv = None
             if layer.with_cross:
                 ck_nat = layer.cross_attn.key(enc)            # (B, L, D)
                 cv_nat = layer.cross_attn.value(enc)
                 ck, cv = split_heads(ck_nat, h), split_heads(cv_nat, h)
-                # the fused cache keeps the natural layout, the per-layer
-                # one the head-split (B, H, L, Dh)
-                cross_k.append(ck_nat if fused else ck)
-                cross_v.append(cv_nat if fused else cv)
-            hidden, k, v = layer.prefill(hidden, attention_mask, ck, cv, beams)
+                # the fused cache keeps the natural layout (int8 with
+                # `quant`), the per-layer one the head-split (B, H, L, Dh)
+                if quant:
+                    for nat, vals, scales in ((ck_nat, cross_k, cross_ks),
+                                              (cv_nat, cross_v, cross_vs)):
+                        q8, scale = quantize_kv(nat, h)
+                        vals.append(q8)
+                        scales.append(scale)
+                else:
+                    cross_k.append(ck_nat if fused else ck)
+                    cross_v.append(cv_nat if fused else cv)
+            hidden, k, v = layer.prefill(hidden, attention_mask, ck, cv, beams,
+                                         cross_kernel)
             if fused:  # (N, H, P, Dh) -> (P, N, D)
                 self_k[i, :p] = k.permute(2, 0, 1, 3).reshape(p, n, d)
                 self_v[i, :p] = v.permute(2, 0, 1, 3).reshape(p, n, d)
@@ -411,12 +479,16 @@ class RobertaCausalDecoder(nn.Module):
                          "cross_v": torch.stack(cross_v)}
         if packed is None:
             packed = pack_decode_collection(self)
-        return out, {"self_k_tn": self_k, "self_v_tn": self_v,
-                     "self_k_spare": torch.empty_like(self_k),
-                     "self_v_spare": torch.empty_like(self_v),
-                     "cross_k": torch.stack(cross_k),
-                     "cross_v": torch.stack(cross_v),
-                     "w_all": packed["w_all"], "b_all": packed["b_all"]}
+        cache = {"self_k_tn": self_k, "self_v_tn": self_v,
+                 "self_k_spare": torch.empty_like(self_k),
+                 "self_v_spare": torch.empty_like(self_v),
+                 "cross_k": torch.stack(cross_k),
+                 "cross_v": torch.stack(cross_v),
+                 "w_all": packed["w_all"], "b_all": packed["b_all"]}
+        if quant:
+            cache["cross_ks"] = torch.stack(cross_ks)
+            cache["cross_vs"] = torch.stack(cross_vs)
+        return out, cache
 
     def decode_step(self, token_ids: torch.Tensor, index: int,
                     position_ids: torch.Tensor, key_mask: torch.Tensor,
@@ -477,7 +549,8 @@ class RobertaCausalDecoder(nn.Module):
             hidden, cache["w_all"], cache["b_all"], cache["self_k_tn"],
             cache["self_v_tn"], key_mask, cache["cross_k"], cache["cross_v"],
             index, perm, *spare, heads=c.num_attention_heads,
-            eps=c.layer_norm_eps)
+            eps=c.layer_norm_eps, cross_ks=cache.get("cross_ks"),
+            cross_vs=cache.get("cross_vs"))
         new = dict(cache, self_k_tn=self_k, self_v_tn=self_v)
         if perm is not None:
             new["self_k_spare"] = cache["self_k_tn"]

@@ -104,7 +104,7 @@ def kernels() -> ctypes.CDLL:
         [_P] * 13 + [_I] * 4 + [_F, _I, _I, _P])
     lib.prismer_beam_update.restype = _I
     lib.prismer_fused_decode_step.argtypes = (
-        [_P] * 15 + [_I] * 11 + [_F, _F, _P])
+        [_P] * 17 + [_I] * 11 + [_F, _F, _P])
     lib.prismer_fused_decode_step.restype = _I
     lib.prismer_lm_topk.argtypes = [_P] * 8 + [_I] * 9 + [_P]
     lib.prismer_lm_topk.restype = _I
@@ -126,6 +126,8 @@ def kernels() -> ctypes.CDLL:
     lib.prismer_ln_proj.restype = _I
     lib.prismer_adaptor_fused.argtypes = [_P] * 8 + [_I] * 2 + [_F, _I, _P]
     lib.prismer_adaptor_fused.restype = _I
+    lib.prismer_grouped_attention.argtypes = [_P] * 4 + [_I] * 7 + [_F, _P]
+    lib.prismer_grouped_attention.restype = _I
     return lib
 
 

@@ -30,7 +30,10 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e9  # the attention mask fill (JAX flash_attention.py:54)
-KERNEL_HEAD_DIMS = (64, 96)
+# the head dims the kernels are built for: every one of the model registry's
+# (BASE 64 and its resampler 96, ViT-H/14 80, the LARGE and HUGE resamplers
+# 128 and 160)
+KERNEL_HEAD_DIMS = (64, 80, 96, 128, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -6,7 +6,8 @@ Port of prismer_tpu/ops/fused_decode.py (`pack_decode_weights`,
 `csrc/fused_decode.cu`; its header note says what it replaces, what bounds
 it on the H100 and how it is built. `fused_decode_step` launches the kernel
 for CUDA tensors and computes `fused_decode_step_reference` for tensors on
-the CPU. Launches are counted in `fused_decode_step.launches` (one per step).
+the CPU. Launches are counted in `fused_decode_step.launches` (one per step),
+those with int8 cross K/V in `fused_decode_step.int8_launches`.
 
 Layouts (the port's own):
   * hidden (N, D), N = B * beams rows;
@@ -18,8 +19,16 @@ Layouts (the port's own):
     plus LayerNorm parameters into one flat fp32 tensor (`layer_layout`).
 The TPU layout's head/tail weight split, chunked W2, zero cross slots of the
 output layer, 8-row beam padding and lane-padded cross K^T are not carried
-over. The int8 cross-KV variant (`PRISMER_KV_QUANT`, off by default in JAX)
-is not ported.
+over.
+
+int8 cross K/V (the JAX package's `PRISMER_KV_QUANT=int8`, kernel 4b; off
+by default there and here, `models.roberta.set_kv_quant`): `quantize_kv`
+turns each layer's (B, L, D) cross K or V into int8 plus fp32 scales
+(B, H), one per (sample, head), as JAX's `quantize_kv_nat` does; the step
+takes the int8 (NLc, B, L, D) tensors with their (NLc, B, H) scales
+(`cross_ks`, `cross_vs`). The K scale folds into the cross query (fp32
+product, rounded to the compute dtype) and the V scale into the normalised
+probabilities (fp32 product, rounded), the TPU kernel's rounding points.
 
 Numerics (the JAX kernel's spec, the XLA cached path): dense = fp32
 accumulation rounded to the compute dtype, plus the bias in that dtype; LN in
@@ -124,6 +133,21 @@ def pack_decode_weights(decoder, dtype: torch.dtype
     return w_all, b_all
 
 
+def quantize_kv(x: torch.Tensor, heads: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of natural-layout cross K or V (B, L, D)
+    with one fp32 scale per (sample, head): scale = max(amax over (L, Dh),
+    1e-30) / 127, q = clip(round(x / scale), -127, 127), a true division,
+    round half to even (JAX `quantize_kv_nat`). Returns (q int8 (B, L, D),
+    scale fp32 (B, H))."""
+    b, l, d = x.shape
+    x4 = x.float().view(b, l, heads, d // heads)
+    amax = x4.abs().amax(dim=(1, 3))
+    scale = amax.clamp_min(1e-30) / 127.0
+    q = torch.round(x4 / scale[:, None, :, None]).clamp_(-127, 127)
+    return q.to(torch.int8).view(b, l, d), scale
+
+
 def _dims(hidden0, w_all, b_all, self_k, cross_k, heads):
     n, d = hidden0.shape
     nl, t = self_k.shape[0], self_k.shape[1]
@@ -158,6 +182,27 @@ def _ln(o, res, sb, eps):
     return y.to(o.dtype)
 
 
+def _check_scales(cross_k, cross_v, cross_ks, cross_vs, b, heads):
+    """Raise unless int8 cross K/V come with (NLc, B, H) fp32 scales, or
+    compute-dtype ones without."""
+    quant = cross_k.dtype == torch.int8
+    if cross_v.dtype != cross_k.dtype:
+        raise ValueError(f"fused_decode_step: cross_k {cross_k.dtype}, "
+                         f"cross_v {cross_v.dtype}")
+    if not quant:
+        if cross_ks is not None or cross_vs is not None:
+            raise ValueError("fused_decode_step: scales given with "
+                             f"{cross_k.dtype} cross K/V (int8 only)")
+        return False
+    want = (cross_k.shape[0], b, heads)
+    for name, t in (("cross_ks", cross_ks), ("cross_vs", cross_vs)):
+        if t is None or tuple(t.shape) != want or t.dtype != torch.float32:
+            raise ValueError(f"fused_decode_step: int8 cross K/V need "
+                             f"{name} fp32 {want}; got "
+                             f"{None if t is None else (t.dtype, tuple(t.shape))}")
+    return True
+
+
 @torch.no_grad()
 def fused_decode_step_reference(
         hidden0: torch.Tensor, w_all: torch.Tensor, b_all: torch.Tensor,
@@ -166,11 +211,13 @@ def fused_decode_step_reference(
         flat_beam: Optional[torch.Tensor] = None,
         out_k: Optional[torch.Tensor] = None,
         out_v: Optional[torch.Tensor] = None, *, heads: int,
-        eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
+        eps: float = 1e-5, cross_ks: Optional[torch.Tensor] = None,
+        cross_vs: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
     """The plain version of `fused_decode_step` (same arguments, same
     results, same in-place writes)."""
     n, d, f, nl, nlc, t, b, l_enc = _dims(hidden0, w_all, b_all, self_k,
                                           cross_k, heads)
+    quant = _check_scales(cross_k, cross_v, cross_ks, cross_vs, b, heads)
     dtype = hidden0.dtype
     dh = d // heads
     beams = n // b
@@ -205,8 +252,13 @@ def fused_decode_step_reference(
             qc = qc.view(b, beams, heads, dh)
             kc = cross_k[i].float().view(b, l_enc, heads, dh)
             vc = cross_v[i].float().view(b, l_enc, heads, dh)
+            if quant:   # the K scale into q, rounded (int8 K widens exactly)
+                qc = (qc * cross_ks[i][:, None, :, None]).to(dtype).float()
             s = torch.einsum("bkhd,blhd->bkhl", qc, kc) * scale
-            pr = torch.softmax(s, dim=-1).to(dtype)
+            pn = torch.softmax(s, dim=-1)
+            if quant:   # the V scale into the normalised probabilities
+                pn = pn * cross_vs[i][:, None, :, None]
+            pr = pn.to(dtype)
             co = torch.einsum("bkhl,blhd->bkhd", pr.float(), vc).to(dtype)
             o = _dense(co.reshape(n, d), p["w_cross_out"], p["b_cross_out"])
             x = _ln(o, x, p["b_ln2"], eps)
@@ -226,13 +278,18 @@ def fused_decode_step(hidden0: torch.Tensor, w_all: torch.Tensor,
                       index: int, flat_beam: Optional[torch.Tensor] = None,
                       out_k: Optional[torch.Tensor] = None,
                       out_v: Optional[torch.Tensor] = None, *, heads: int,
-                      eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
+                      eps: float = 1e-5,
+                      cross_ks: Optional[torch.Tensor] = None,
+                      cross_vs: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, ...]:
     """One whole decode step over all NL layers.
 
     hidden0 (N, D) embeddings output in the compute dtype; w_all / b_all
     from `pack_decode_weights`; self_k / self_v (NL, T, N, D); key_mask
     (N, T) {0, 1}, the validity of every cache column once column `index`
-    holds this step's K/V; cross_k / cross_v (NLc, B, L, D).
+    holds this step's K/V; cross_k / cross_v (NLc, B, L, D) in the compute
+    dtype, or int8 (`quantize_kv`) with their fp32 (NLc, B, H) scales
+    cross_ks / cross_vs (required with int8, refused without).
 
     Without flat_beam the column `index` of self_k / self_v is written in
     place. With flat_beam (N,) int32, row n of each layer's caches is read
@@ -255,27 +312,40 @@ def fused_decode_step(hidden0: torch.Tensor, w_all: torch.Tensor,
                 out_v.data_ptr() == self_v.data_ptr():
             raise ValueError("fused_decode_step: the reorder cannot run in "
                              "place; out_k/out_v must be other buffers")
+    quant = _check_scales(cross_k, cross_v, cross_ks, cross_vs, b, heads)
     if not hidden0.is_cuda:
         return fused_decode_step_reference(
             hidden0, w_all, b_all, self_k, self_v, key_mask, cross_k,
-            cross_v, index, flat_beam, out_k, out_v, heads=heads, eps=eps)
+            cross_v, index, flat_beam, out_k, out_v, heads=heads, eps=eps,
+            cross_ks=cross_ks, cross_vs=cross_vs)
     from prismer_tpu_torch.ops import _build
 
     dtype = hidden0.dtype
-    if dtype not in _DTYPE_CODES or d % 8 or (d // heads) % 8 or (
-            dtype == torch.bfloat16 and (d % 32 or f % 32)):
+    dh = d // heads
+    # the cross kernel reads a head's row in a power-of-two count of lane
+    # slices (16 bytes, 8 values in int8): the head width is 64 in every
+    # registry decoder
+    lanes = dh // (8 if quant else 16 // hidden0.element_size())
+    if dtype not in _DTYPE_CODES or d % 8 or dh % 8 or (
+            dtype == torch.bfloat16 and (d % 32 or f % 32)) or \
+            not 0 < lanes <= 32 or lanes & (lanes - 1):
         raise ValueError(f"fused_decode_step: kernel takes "
                          f"{list(_DTYPE_CODES)} with D and the head width "
-                         f"multiples of 8, D and F of 32 in bf16; got {dtype},"
-                         f" D {d}, F {f}, {heads} heads")
+                         f"multiples of 8, D and F of 32 in bf16, a "
+                         f"power-of-two count of lane slices per head row; "
+                         f"got {dtype}, D {d}, F {f}, {heads} heads")
     if flat_beam is None:
         out_k, out_v = self_k, self_v
     key_mask = key_mask.to(torch.int32).contiguous()
+    kv_dtype = torch.int8 if quant else dtype
     want = [("hidden0", hidden0, dtype), ("w_all", w_all, dtype),
             ("b_all", b_all, torch.float32), ("self_k", self_k, dtype),
             ("self_v", self_v, dtype), ("out_k", out_k, dtype),
             ("out_v", out_v, dtype), ("key_mask", key_mask, torch.int32),
-            ("cross_k", cross_k, dtype), ("cross_v", cross_v, dtype)]
+            ("cross_k", cross_k, kv_dtype), ("cross_v", cross_v, kv_dtype)]
+    if quant:
+        want += [("cross_ks", cross_ks, torch.float32),
+                 ("cross_vs", cross_vs, torch.float32)]
     if flat_beam is not None:
         want.append(("flat_beam", flat_beam, torch.int32))
     for name, x, dt in want:
@@ -302,14 +372,20 @@ def fused_decode_step(hidden0: torch.Tensor, w_all: torch.Tensor,
         out_v.data_ptr(),
         None if flat_beam is None else flat_beam.data_ptr(),
         key_mask.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(),
+        cross_ks.data_ptr() if quant else None,
+        cross_vs.data_ptr() if quant else None,
         hidden_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         work.data_ptr(), n, b, d, heads, f, nl, nlc, t, l_enc, index,
         _DTYPE_CODES[dtype], eps, 1.0 / math.sqrt(d // heads),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_decode_step")
-    fused_decode_step.launches += 1
+    if quant:
+        fused_decode_step.int8_launches += 1
+    else:
+        fused_decode_step.launches += 1
     return hidden_out, k_new, v_new, out_k, out_v
 
 
-fused_decode_step.launches = 0
+fused_decode_step.launches = 0        # kernel 4: compute-dtype cross K/V
+fused_decode_step.int8_launches = 0   # kernel 4b: int8 cross K/V
 

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DIM = 1024    # the widest row a kernel warp keeps in registers
+MAX_DIM = 1280    # the widest row a kernel warp keeps in registers
 
 
 def fp32_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -34,14 +34,21 @@ def fp32_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+def width_ok(d: int, multiple: int) -> bool:
+    """Whether the LayerNorm kernels take rows of width d: a multiple of
+    `multiple` (8 for `fused_layer_norm`, 64 for `ln_proj` and
+    `adaptor_fused`) and at most MAX_DIM. Every registry width is taken:
+    768, 1024 and 1280."""
+    return d >= multiple and d % multiple == 0 and d <= MAX_DIM
+
+
 def check_rows(name: str, x2d: torch.Tensor, scale: torch.Tensor,
                bias: torch.Tensor, multiple: int) -> None:
     """Raise unless the kernels take x2d (R, D) and its LayerNorm affine:
-    fp32 or bf16, D a multiple of `multiple` and at most MAX_DIM,
-    contiguous, 16-byte aligned, all on x2d's device (scale and bias of
-    any float dtype, (D,))."""
+    fp32 or bf16, `width_ok(D, multiple)`, contiguous, 16-byte aligned, all
+    on x2d's device (scale and bias of any float dtype, (D,))."""
     r, d = x2d.shape
-    if x2d.dtype not in _DTYPE_CODES or d % multiple or d > MAX_DIM or r < 1:
+    if x2d.dtype not in _DTYPE_CODES or not width_ok(d, multiple) or r < 1:
         raise ValueError(f"{name}: kernel takes {list(_DTYPE_CODES)} rows of "
                          f"D <= {MAX_DIM}, a multiple of {multiple}; got "
                          f"{x2d.dtype} ({r}, {d})")

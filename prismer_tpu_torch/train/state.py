@@ -9,7 +9,9 @@ a lower precision; the optimizer updates the masters (and the fp32
 parameters, which are their own masters), and the step refreshes the
 compute-dtype weights from the masters. Masters come from fp32 values
 (`convert.from_jax.load_jax_masters`, `models.prismer.random_masters`),
-never from the rounded weights.
+never from the rounded weights. Where those values also cover frozen
+low-precision leaves, the state keeps them too (on the host: the optimizer
+never sees them), so `params_fp32` exports every leaf at full precision.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     schedule: Schedule
     generator: torch.Generator          # instance slots and dropout seeds
+    frozen_fp32: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)           # host fp32 values of frozen ones
 
     @classmethod
     def create(cls, model: nn.Module, schedule: Schedule,
@@ -40,8 +44,10 @@ class TrainState:
                masters: Optional[Dict[str, torch.Tensor]] = None,
                seed: int = 0) -> "TrainState":
         """Freeze by mode, copy the masters of the trainable low-precision
-        parameters (required when there are any) and build AdamW over the
-        fp32 leaves. `seed` seeds the generator of the random streams."""
+        parameters (required when there are any), keep host fp32 copies of
+        the frozen low-precision parameters that `masters` also covers, and
+        build AdamW over the fp32 leaves. `seed` seeds the generator of the
+        random streams."""
         labels = apply_freeze(model, freeze_mode)
         params = dict(model.named_parameters())
         need = [n for n, p in params.items()
@@ -52,9 +58,15 @@ class TrainState:
         own = {n: masters[n].detach().to(device=params[n].device,
                                          dtype=torch.float32).clone()
                for n in need}
+        frozen = {n: masters[n].detach().to(device="cpu",
+                                            dtype=torch.float32).clone()
+                  for n, p in params.items()
+                  if labels[n] != TRAIN and p.dtype != torch.float32
+                  and masters is not None and n in masters}
         state = cls(step=0, model=model, labels=labels, masters=own,
                     optimizer=None, schedule=schedule,
-                    generator=torch.Generator().manual_seed(seed))
+                    generator=torch.Generator().manual_seed(seed),
+                    frozen_fp32=frozen)
         state.optimizer = make_optimizer(
             [leaf for _, leaf in state.trainable()], weight_decay,
             schedule(0))
@@ -67,7 +79,8 @@ class TrainState:
                 yield name, self.masters.get(name, p)
 
     def params_fp32(self) -> Dict[str, torch.Tensor]:
-        """Every parameter at full precision: masters over the rounded
-        weights, where there are masters."""
-        return {n: self.masters.get(n, p).detach()
+        """Every parameter at full precision: masters, or the frozen
+        leaves' fp32 copies, over the rounded weights, where there are
+        such values."""
+        return {n: self.masters.get(n, self.frozen_fp32.get(n, p)).detach()
                 for n, p in self.model.named_parameters()}

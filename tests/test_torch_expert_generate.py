@@ -273,3 +273,41 @@ def test_main_refuses_the_card_when_there_is_none(monkeypatch, tmp_path):
         port_generate.main(["--task", "depth", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         port_bank.load_expert_model("depth", 64, "cpu")
+
+
+def test_main_runs_the_model_in_fp32_and_restores_tf32(image_root, tmp_path,
+                                                       monkeypatch):
+    """The generator pins fp32 for its run, as the JAX package computes
+    its convolutions: inside the model's forward both TF32 flags read
+    False, whatever they were before; main() restores them afterwards."""
+    seen = []
+
+    class Recording(torch.nn.Module):
+        """Records the flags, returns 133-class logits at a quarter of the
+        input size."""
+
+        def forward(self, x):
+            seen.append((torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32))
+            b, h, w, _ = x.shape
+            return torch.zeros(b, 133, h // 4, w // 4)
+
+    def load(task, image_size, device):
+        return Recording(), port_bank.resize_norm(
+            image_size, port_bank.SEG_MEAN, port_bank.SEG_STD)
+
+    monkeypatch.setattr(port_generate, "load_expert_model", load)
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert port_generate.main([
+        "--task", "seg_coco", "--data_path", str(image_root / "data"),
+        "--save_path", str(tmp_path / "out"), "--image_size", str(RES),
+        "--batch_size", "2", "--device", "cpu"]) == 0
+    assert seen and set(seen) == {(False, False)}
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == (True, True)
+    monkeypatch.undo()
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == before

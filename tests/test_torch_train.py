@@ -509,6 +509,39 @@ def test_params_npz_crosses_between_packages(tmp_path):
     assert jax.tree.structure(back) == jax.tree.structure(tree)
 
 
+def test_freeze_vision_npz_keeps_frozen_leaves_fp32(tmp_path, monkeypatch):
+    """The bf16 model under freeze_vision, one train step: the exported
+    .npz holds the frozen ViT leaves at full precision, bit for bit the
+    JAX package's .npz of its params (a frozen leaf never moves there,
+    test_two_steps_match_jax_build_train_step), not their bf16 rounding."""
+    _, _, variables_np = build_jax("float32")
+    port, state = build_port(variables_np, "bfloat16")
+    monkeypatch.setattr(port_prismer, "draw_instance_slots",
+                        lambda *a: torch.arange(256) % 128)
+    state, _ = build_train_step(port)(state, port_batch(caption_batch(1)))
+    assert state.step == 1 and state.frozen_fp32
+    path, jpath = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    port_checkpoint.save_params_npz(path, state.params_fp32())
+    jax_checkpoint.save_params_npz(jpath, variables_np["params"])
+    got, want = np.load(path), np.load(jpath)
+    assert set(got.files) == set(want.files)
+    frozen = [n for n, label in state.labels.items()
+              if label == port_optim.FROZEN
+              and port.get_parameter(n).dtype == torch.bfloat16]
+    assert len(frozen) > 10
+    for name in frozen:
+        _, jpath_parts, _ = jax_path_and_value(
+            name, np.zeros(port.get_parameter(name).shape))
+        key = "".join(f"['{p}']" for p in jpath_parts)
+        np.testing.assert_array_equal(got[key], want[key], err_msg=name)
+        assert got[key].dtype == np.float32
+        rounded = port.get_parameter(name).float().numpy()
+        assert not np.array_equal(_port_layout(name, got[key]), rounded), name
+    # the optimizer's leaves are the trainable ones only, as before
+    assert {n for n, _ in state.trainable()} == {
+        n for n, label in state.labels.items() if label != port_optim.FROZEN}
+
+
 def test_caption_loss_equals_jax_caption_loss(monkeypatch):
     """The task head's eval loss (pads and prompt masked, mean of the
     per-sample sums) against JAX's caption_loss, JAX's fixed slot draw

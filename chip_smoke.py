@@ -605,9 +605,12 @@ TRAIN_ATTENTION = (
 def check_flash_backward(results):
     """Kernels 6 and 7 against their plain versions at the train step's
     shapes and at the LARGE / HUGE encoders' head dims 80, 128 and 160,
-    fp32 and bf16; two launches on the same inputs bit-identical."""
+    fp32 and bf16; two launches on the same inputs bit-identical. At every
+    bf16 shape: kernel and plain ms (CUDA events), device ms (graph
+    replay), the bound, achieved TFLOP/s on the 6 / 8 x B*H*Lq*Lk*Dh counts
+    and SDPA's backward on the same inputs. Then ptxas -v's registers and
+    spills of every instantiation (report_ptxas)."""
     import torch
-    import torch.nn.functional as F
     from prismer_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -675,36 +678,118 @@ def check_flash_backward(results):
             if fp32:
                 dq_e["max_abs_err"] = max(dq_e["max_abs_err"], errs[0])
                 dkv_e["max_abs_err"] = max(dkv_e["max_abs_err"], *errs[1:])
-            elif name != "trunk":
-                pairs = 1.0 * b * h * lq * lk * dh
-                ins = nbytes(q, k, v, dout, lse, delta)
-                bq, bkv = {}, {}
-                set_bound(bq, ins + nbytes(got[0]), 6.0 * pairs, dtype)
-                set_bound(bkv, ins + nbytes(*got[1:]), 8.0 * pairs, dtype)
-                log(f"    bound dq {bq['bound_ms']:.4f} ms ({bq['bound_by']}),"
-                    f" dk/dv {bkv['bound_ms']:.4f} ms ({bkv['bound_by']})")
-            else:
+                del got, again, want
+                continue
+            pairs = 1.0 * b * h * lq * lk * dh
+            ins = nbytes(q, k, v, dout, lse, delta)
+            bq, bkv = {}, {}
+            set_bound(bq, ins + nbytes(got[0]), 6.0 * pairs, dtype)
+            set_bound(bkv, ins + nbytes(*got[1:]), 8.0 * pairs, dtype)
+            lib = sdpa_backward_ms(q, k, v, dout, packed, h, dh, mask, causal)
+            # device time without the host's dispatch (which bounds the
+            # decoder's small shapes), from CUDA-graph replays
+            dev_dq, dev_dkv = graph_ms(kernel_dq), graph_ms(kernel_dkv)
+            log(f"    bound dq {bq['bound_ms']:.4f} ms ({bq['bound_by']}), "
+                f"dk/dv {bkv['bound_ms']:.4f} ms ({bkv['bound_by']}); "
+                f"achieved dq {6.0 * pairs / ms_dq / 1e9:.1f}, dk/dv "
+                f"{8.0 * pairs / ms_dkv / 1e9:.1f}, pair "
+                f"{14.0 * pairs / (ms_dq + ms_dkv) / 1e9:.1f} TFLOP/s; "
+                f"graph replay dq {dev_dq:.4f} ms, dk/dv {dev_dkv:.4f} ms "
+                f"({14.0 * pairs / (dev_dq + dev_dkv) / 1e9:.1f} TFLOP/s); "
+                f"F.scaled_dot_product_attention backward {lib:.4f} ms")
+            if name == "trunk":
                 dq_e["ms"], dq_e["plain_ms"] = ms_dq, plain_dq
                 dkv_e["ms"], dkv_e["plain_ms"] = ms_dkv, plain_dkv
-                pairs = 1.0 * b * h * lq * lk * dh
-                ins = nbytes(q, k, v, dout, lse, delta)
-                set_bound(dq_e, ins + nbytes(got[0]), 6.0 * pairs, dtype)
-                set_bound(dkv_e, ins + nbytes(*got[1:]), 8.0 * pairs, dtype)
-                # SDPA's autograd backward (dq, dk, dv together), its
-                # forward excluded
-                leaves = [t.detach().view(b, -1, h, dh).transpose(1, 2)
-                          .requires_grad_() for t in (q, k, v)]
-                o_lib = F.scaled_dot_product_attention(*leaves)
-                d_lib = dout.view(b, -1, h, dh).transpose(1, 2)
-                lib = cuda_ms(lambda: torch.autograd.grad(
-                    o_lib, leaves, d_lib, retain_graph=True), iters=10)
+                dq_e.update(bq)
+                dkv_e.update(bkv)
                 dq_e["library_ms"] = dkv_e["library_ms"] = lib
-                log(f"    bound dq {dq_e['bound_ms']:.4f} ms, dk/dv "
-                    f"{dkv_e['bound_ms']:.4f} ms (operations); "
-                    f"F.scaled_dot_product_attention backward {lib:.4f} ms")
-                del leaves, o_lib
             del got, again, want
         torch.cuda.empty_cache()
+    report_ptxas()
+
+
+def sdpa_backward_ms(q, k, v, dout, packed, h, dh, mask, causal) -> float:
+    """SDPA's autograd backward (dq, dk, dv together, its forward excluded)
+    on the same inputs, with the same key mask and bottom-right causal
+    mask: the library yardstick of kernels 6 and 7."""
+    import torch
+    import torch.nn.functional as F
+    if packed:
+        b = q.shape[0]
+        leaves = [t.detach().view(b, -1, h, dh).transpose(1, 2)
+                  .requires_grad_() for t in (q, k, v)]
+        grad = dout.view(b, -1, h, dh).transpose(1, 2)
+    else:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        grad = dout
+    keep = None
+    if mask is not None:
+        keep = mask.bool()[:, None, None, :]
+    if causal:
+        lq, lk = q.shape[-2], k.shape[-2]
+        tri = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril(
+            lk - lq)
+        keep = tri if keep is None else keep & tri
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, grad,
+                                               retain_graph=True), iters=10)
+
+
+# `nvcc -Xptxas -v` of the backward kernels' source, started beside the
+# library build in phase_build and read after check_flash_backward
+_PTXAS = {}
+
+
+def start_ptxas():
+    from prismer_tpu_torch.ops import _build
+    src = _build.CSRC / "flash_attention_bwd.cu"
+    obj = _build.BUILD_DIR / f"ptxas_{src.stem}.{time.time_ns()}.o"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _PTXAS["obj"] = obj
+    _PTXAS["proc"] = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+         str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def report_ptxas():
+    """Registers and spills of every instantiation of the backward kernels
+    (ptxas -v, written in full to chiprun_out/); fails on any spill."""
+    if "proc" not in _PTXAS:
+        start_ptxas()
+    proc = _PTXAS.pop("proc")
+    _, err = proc.communicate()
+    _PTXAS.pop("obj").unlink(missing_ok=True)
+    expect(proc.returncode == 0, f"nvcc -Xptxas -v failed: {err[-2000:]}")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "ptxas_flash_attention_bwd.txt").write_text(err)
+    rows, entry, props, name = [], None, None, None
+    for line in err.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            k = re.search(r"flash_bwd_(dkv|dq)_(tc|f32)ILi(\d+)", entry)
+            name = f"{k.group(1)} {k.group(2)} Dh {k.group(3)}" if k else None
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name and props == entry:
+            rows.append([name, None, int(m.group(1)) + int(m.group(2))])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and rows and rows[-1][0] == name:
+            rows[-1][1] = int(m.group(1))
+    for name, regs, spill in sorted(rows):
+        log(f"    ptxas {name}: {regs} registers, {spill} bytes spilled")
+    for line in err.splitlines():
+        if "wgmma" in line.lower():
+            log(f"    ptxas: {line.strip()}")
+    expect(len(rows) == 20, f"ptxas -v listed {len(rows)} of the 20 "
+           "backward kernels")
+    expect(all(spill == 0 for _, _, spill in rows),
+           "a flash backward kernel spills registers")
 
 
 def check_fused_ce(results):
@@ -2578,6 +2663,7 @@ def main(argv=None) -> int:
 def phase_build(results):
     from prismer_tpu_torch.ops import _build
     t0 = time.perf_counter()
+    start_ptxas()
     lib = _build.build()
     _build.kernels()
     log(f"  built and loaded {lib.relative_to(ROOT)} in "

@@ -1,0 +1,367 @@
+// Hopper (sm_90a) building blocks in inline PTX: TMA tensor loads,
+// mbarriers, and warpgroup matrix products (wgmma) with their shared-memory
+// descriptors. Used by the flash-attention backward kernels
+// (flash_attention_bwd.cu); written without CUTLASS / CuTe so that every
+// build error names a line of this repository.
+//
+// Shared-memory tiles are bf16, 64 columns (128 bytes) per row, in the
+// 128-byte swizzle that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes
+// and a wgmma descriptor of layout type 1 reads. A tile wider than 64
+// columns is stored as column blocks of 64, one after the other
+// ([block][row][64]); every block starts 1024-byte aligned, the period of
+// the swizzle. Two ways to read such a tile as a wgmma operand:
+//   * K-major (the product's reduction runs along the row, e.g. S = Q K^T
+//     over the head dim): 8-row groups 1024 bytes apart (SBO); the k-th
+//     16-column step starts (k % 4) * 32 bytes into block k / 4;
+//   * MN-major (the reduction runs down the rows, e.g. dV += P^T dO over
+//     queries): 16 rows per k-step, 2048 bytes apart, 8-row groups 1024
+//     bytes apart; one instruction covers at most the 64 columns of one
+//     block, so a head dim of 80, 96 or 160 takes 64-, 32- or 16-wide
+//     instructions, one per block.
+// Accumulators (fp32) and register A operands (bf16 pairs) follow the
+// mma.sync m16n8k16 fragment layout per warp: warp w of the warpgroup holds
+// rows 16w + gid and 16w + gid + 8 (gid = lane / 4), columns 8j + 2 * (lane
+// % 4) + {0, 1}; accumulator d[4j + 2 * half + e] is row 16w + gid + 8 *
+// half, column 8j + 2 * (lane % 4) + e.
+
+#pragma once
+
+#include <cuda.h>   // CUtensorMap and its enums; the driver is reached
+                    // through cudaGetDriverEntryPoint, not linked
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// host: tensor maps
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver that the runtime loaded, or null
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+// A (B, H, L, D) bf16 view with element strides (sb, sh, sl, 1), loaded in
+// boxes of 64 columns x `rows` rows of one (batch, head), 128-byte swizzle.
+// Rows past L and columns past D read as zeros. The strides of extent-1
+// dimensions are never followed, so any multiple of 8 stands in for them.
+inline bool encode_bf16_rows(CUtensorMap* map, const void* base, int B, int H,
+                             int L, int D, int64_t sb, int64_t sh, int64_t sl,
+                             int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  if (L == 1) sl = 8;
+  if (H == 1) sh = sl * L;
+  if (B == 1) sb = sh * H;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sl) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------------------
+// device: mbarriers and TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// make initialised barriers visible to the async (TMA) proxy
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also adds `bytes` to the transaction count the current
+// phase waits for (issue before the copies that complete on it)
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+
+// one arrival (release: this thread's earlier shared-memory writes are
+// visible to whoever waits on the phase)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a rank-4 tensor map into shared memory; completes on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device: wgmma
+// ---------------------------------------------------------------------------
+
+// shared-memory matrix descriptor, 128-byte swizzle (layout type 1);
+// offsets in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// operand of a product reducing along the 128-byte rows (K-major)
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+
+// operand of a product reducing down the rows (MN-major), at most one
+// 64-column block wide
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 1024, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of accumulator registers
+// across an asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A operand of k-step t from an accumulator of the same rows: columns
+// 16t .. 16t + 15 of acc, rounded to bf16 (the mma.sync re-pack)
+__device__ __forceinline__ void acc_to_a(const float* acc, int t,
+                                         uint32_t* a) {
+  a[0] = pack_bf16(acc[8 * t + 0], acc[8 * t + 1]);
+  a[1] = pack_bf16(acc[8 * t + 2], acc[8 * t + 3]);
+  a[2] = pack_bf16(acc[8 * t + 4], acc[8 * t + 5]);
+  a[3] = pack_bf16(acc[8 * t + 6], acc[8 * t + 7]);
+}
+
+// d (64 x 32) (+)= A (64 x 16, shared, K-major) * B (16 x 32, shared,
+// K-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64) (+)= A (64 x 16, shared, K-major) * B (16 x 64, shared,
+// K-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 16) (+)= A (64 x 16, registers) * B (16 x 16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 32) (+)= A (64 x 16, registers) * B (16 x 32, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64) (+)= A (64 x 16, registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+
+// d (64 x N) (+)= A (64 x 16) * B (16 x N): A and B K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
+                                         int scale_d) {
+  static_assert(N == 32 || N == 64, "wgmma_ss: N is 32 or 64");
+  if constexpr (N == 32) {
+    wgmma_ss_n32(d, a, b, scale_d);
+  } else {
+    wgmma_ss_n64(d, a, b, scale_d);
+  }
+}
+
+// d (64 x N) (+)= A (64 x 16, registers) * B (16 x N, MN-major)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t b, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma_rs: N is 16, 32, 64");
+  if constexpr (N == 16) {
+    wgmma_rs_n16(d, a, b, scale_d);
+  } else if constexpr (N == 32) {
+    wgmma_rs_n32(d, a, b, scale_d);
+  } else {
+    wgmma_rs_n64(d, a, b, scale_d);
+  }
+}
+
+// d (64 x DH) += A (64 x 16, registers) * B, where B is the k-step's 16
+// rows of a tile of `rows` rows (column blocks rows * 128 bytes apart),
+// MN-major; one instruction per 64-column block
+template <int DH, int ROWS>
+__device__ __forceinline__ void wgmma_rs_wide(float* d, const uint32_t* a,
+                                              uint32_t tile, int t) {
+#pragma unroll
+  for (int c = 0; c * 64 < DH; ++c) {
+    constexpr int kRest = DH % 64 == 0 ? 64 : DH % 64;
+    const uint64_t b = mnmajor_desc(tile + c * ROWS * 128 + t * 2048);
+    if ((c + 1) * 64 <= DH) {
+      wgmma_rs<64>(d + 32 * c, a, b, 1);
+    } else {
+      wgmma_rs<kRest>(d + 32 * c, a, b, 1);
+    }
+  }
+}
+
+// d (64 x N) (+)= A * B^T over DH columns, A (64 rows) and B (N rows) K-major
+// tiles of DH columns; the first step overwrites d
+template <int DH, int N>
+__device__ __forceinline__ void wgmma_ss_rows(float* d, uint32_t a_tile,
+                                              uint32_t b_tile) {
+#pragma unroll
+  for (int k = 0; k < DH / 16; ++k) {
+    const uint32_t off_a = (k / 4) * 64 * 128 + (k % 4) * 32;
+    const uint32_t off_b = (k / 4) * N * 128 + (k % 4) * 32;
+    wgmma_ss<N>(d, kmajor_desc(a_tile + off_a), kmajor_desc(b_tile + off_b),
+                k > 0 ? 1 : 0);
+  }
+}
+
+}  // namespace hopper

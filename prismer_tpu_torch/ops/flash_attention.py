@@ -199,10 +199,13 @@ def bwd_dkv_reference(q, k, v, dout, lse, delta, key_mask=None, causal=False
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    """t itself if the backward kernels can read it (unit inner stride,
-    (batch, head, row) strides in multiples of 4, 16-byte aligned), else a
-    contiguous copy: the incoming gradient's layout is autograd's choice."""
-    if (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:3])
+    """t itself if the backward kernels can read it, else a contiguous copy
+    (the incoming gradient's layout is autograd's choice): unit inner
+    stride, 16-byte aligned, and (batch, head, row) strides in multiples of
+    16 bytes for bf16 (the TMA boxes of the tensor-core kernels) or of 4
+    elements for fp32 (the FMA kernels' 16-byte loads)."""
+    unit = 8 if t.dtype == torch.bfloat16 else 4
+    if (t.stride(-1) == 1 and all(s % unit == 0 for s in t.stride()[:3])
             and t.data_ptr() % 16 == 0):
         return t
     return t.contiguous()
@@ -233,7 +236,9 @@ def _launch_bwd(fn_name, q, k, v, dout, lse, delta, key_mask, causal, outs):
                              f"(B, H, Lq) on {q.device}")
     for t in outs:
         if _kernel_layout(t) is not t:
-            raise ValueError(f"{fn_name}: output view layout {t.stride()}")
+            raise ValueError(f"{fn_name}: cannot write an output view with "
+                             f"strides {t.stride()} at {t.data_ptr() % 16} "
+                             f"bytes past 16-byte alignment")
     q, k, v, dout = (_kernel_layout(t) for t in (q, k, v, dout))
     mask_ptr, mask_sb = None, 0
     if key_mask is not None:

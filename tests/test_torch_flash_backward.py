@@ -34,10 +34,15 @@ HEAD_SPLIT = [
     ("cross Lq != Lk", 2, 3, 30, 77, 64, None, False),
     ("cross Dh 96", 1, 2, 20, 45, 96, None, False),
 ]
-# (name, B, Lq, Lk, H, Dh)
+# (name, B, Lq, Lk, H, Dh). Dh 80 and 160 are the head dims whose tiles the
+# bf16 kernels cut into 64-column blocks with a partial last block (HUGE's
+# trunk, the HUGE resampler); JAX's packed kernel groups 8 and 4 such heads
+# into 128-lane groups, so H is 8 and 4
 PACKED = [
     ("packed Dh 64", 2, 40, 40, 2, 64),
     ("packed Dh 96 Lq != Lk", 2, 16, 50, 4, 96),
+    ("packed Dh 80 H 8", 1, 12, 12, 8, 80),
+    ("packed Dh 160 Lq != Lk", 1, 8, 20, 4, 160),
 ]
 
 
@@ -142,6 +147,24 @@ def test_backward_wrappers_are_the_plain_versions_on_cpu():
     torch.testing.assert_close(got_dv, want_dv, rtol=0, atol=0)
     assert (pfa.flash_attention_bwd_dq.launches,
             pfa.flash_attention_bwd_dkv.launches) == before
+
+
+def test_kernel_layout_takes_the_dtype_into_account():
+    """The bf16 kernels read their operands as TMA boxes, whose strides are
+    multiples of 16 bytes (8 bf16): a bf16 view with a head stride of 4
+    elements is copied. The fp32 kernels need multiples of 4 elements: an
+    fp32 view with that stride is read in place."""
+    base = torch.zeros(2, 6, 3 * 4 + 64)
+    # (B, H, L, Dh) = (2, 3, 6, 64) with head stride 4, row stride 76
+    view = base.as_strided((2, 3, 6, 64), (6 * 76, 4, 76, 1))
+    assert pfa._kernel_layout(view) is view
+    bf = base.to(torch.bfloat16).as_strided((2, 3, 6, 64), (6 * 76, 4, 76, 1))
+    copy = pfa._kernel_layout(bf)
+    assert copy is not bf and copy.is_contiguous()
+    assert torch.equal(copy, bf)
+    ok = torch.zeros(2, 6, 3 * 64, dtype=torch.bfloat16)
+    heads = pfa._heads(ok, 3)
+    assert pfa._kernel_layout(heads) is heads
 
 
 def test_backward_rounds_p_and_ds_to_the_input_dtype():

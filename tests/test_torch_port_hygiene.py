@@ -220,7 +220,7 @@ KERNEL_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
                   "beam_update.cu", "fused_decode.cu", "lm_topk.cu",
                   "fused_ce.cu", "ms_deform_attn.cu", "layer_norm.cu",
                   "ln_proj.cu", "decode_attention.cu", "common.cuh",
-                  "layer_norm.cuh")
+                  "layer_norm.cuh", "hopper.cuh")
 
 
 def test_kernel_library_named_by_source_hash():

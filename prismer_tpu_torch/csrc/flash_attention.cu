@@ -3,9 +3,9 @@
 // Replaces prismer_tpu/ops/flash_attention.py:
 //   * flash_attention_packed (_packed_forward / _packed_kernel): mask-free,
 //     non-causal attention on packed (B, L, H*Dh) operands;
-//   * flash_attention (_flash_forward / _flash_kernel): head-split
-//     (B, H, L, Dh) attention with an optional key-padding mask and causal
-//     masking.
+//   * flash_attention (_flash_forward / _flash_kernel, _maskfree_kernel):
+//     head-split (B, H, L, Dh) attention with an optional key-padding mask
+//     and causal masking.
 // A packed (B, L, H*Dh) tensor is a strided view of (B, H, L, Dh), so one
 // kernel that takes per-tensor (batch, head, row) strides serves both. The
 // TPU kernel's head-on-lanes grouping and whole-K VMEM blocks are not carried
@@ -13,48 +13,74 @@
 //
 // What bounds it on the H100: at the encoder shape (B=8, L=964, H=12, Dh=64)
 // the two products are ~23 GFLOP per layer, against ~18 MB of q/k/v/o, so it
-// is compute-bound, and only the tensor cores reach the card's rate. The
-// (L, L) scores never reach device memory. Two kernels share the contract:
-//   * bf16 (the serving path): tensor-core tiles with mma.sync m16n8k16
-//     (bf16 in, fp32 accumulate). One block of 4 warps per (64-row q-tile,
-//     head, batch); each warp owns 16 query rows, keeps its Q fragments in
-//     registers, and walks 64-key K/V tiles staged in shared memory (V
-//     transposed on the way in, rows padded against bank conflicts). The
-//     score fragment of QK^T is re-packed in registers as the A operand of
-//     PV, so probabilities never leave registers; row statistics reduce
-//     across the 4 threads of a quad.
-//     Every row start must be 16-byte aligned (the wrapper checks).
+// is compute-bound (0.023 ms at 989 TFLOP/s), and only the tensor cores
+// reach that rate; the (L, L) scores never reach device memory. The
+// resamplers' few queries (Lq 64 against Lk 1240-1600) are the exception:
+// there reading K and V once bounds the call. Both dtypes keep the one
+// contract:
+//   * bf16 (the serving and training path): wgmma products on TMA-fed
+//     tiles (csrc/hopper.cuh), in two kernels that share the per-tile work
+//     (attend_tile). A warpgroup owns 64 query rows of one (batch, head).
+//     It computes S = Q K^T as a shared-memory product (both operands
+//     K-major over Dh), scales, masks and runs the online softmax on S in
+//     registers (accumulator layout, hopper.cuh), rounds P to bf16 and
+//     re-packs it as the register A operand of O += P V, whose B is the V
+//     tile read MN-major (no transpose). O stays in registers (Dh / 2 fp32
+//     per thread) for the whole stream. Tiles without masked or past-Lk
+//     keys (all but the last, mask-free) skip the per-key tests.
+//     - The ring kernel: two consumer warpgroups and a producer warp per
+//       block. The producer's lane 0 loads the Q tiles once and keeps the K
+//       and V tiles (64 keys; 32 at Dh 160, for registers) in flight in a
+//       ring of 4 stages, by TMA on rank-4 (Dh, L, H, B) tensor maps built
+//       in the C entry point from the strides, as bf16 in the 128-byte
+//       swizzle; TMA's zero fill covers rows past L and, at Dh 80, 96 and
+//       160, the columns of the last 64-column block past Dh. With a key
+//       mask its lanes stage the tile's key flags beside it. A block whose
+//       rows fit in one warpgroup (the resamplers, the decoder's
+//       cross-attention) splits the key tiles over both (by stage, each
+//       warpgroup the stages of its parity), and the second hands its
+//       (m, l, O) to the first through shared memory, which combines them
+//       in that fixed order: no float atomics, repeat launches
+//       bit-identical.
+//     - The single-tile kernel (Lk <= one tile: the decoder's prefill and
+//       self-attention): one warpgroup whose thread 0 loads Q, K and V in
+//       one TMA round, no producer warp, so that several of these short
+//       blocks share an SM instead of running in waves.
+//     What bounds this design: a warpgroup serialises its products and its
+//     softmax, and only the two warpgroups of a ring block overlap one's
+//     softmax with the other's products. On an NVIDIA H100 80GB HBM3 at
+//     700 W (chip_smoke.py check_attention, graph replay): the encoder
+//     shape 0.107-0.114 ms, ~200 TFLOP/s, 4.6-4.9x its bound (the
+//     mma.sync kernel this replaced 0.33 ms, SDPA 0.077 ms); the HUGE trunk
+//     (B8 L1220 H16 Dh80) 0.25 ms (0.86 before); the resamplers 1.5-2x their
+//     byte bounds. The other
+//     shapes are in PERF.md section 6.
 //   * fp32 (the card-vs-CPU parity checks): FMA tiles, since the tensor
 //     cores have no full-fp32 product. One thread owns one query row (no
 //     cross-thread softmax reduction); K/V tiles sit in shared memory as
-//     fp32 and are read as broadcasts, four values per load.
+//     fp32 and are read as broadcasts, four values per load. Above Dh 96 a
+//     thread's query row moves from registers to shared memory (row stride
+//     Dh + 1, so the 32 rows a warp reads at once sit in distinct banks), a
+//     block takes 32 rows and a key tile 8 keys, so that the thread's Dh
+//     accumulators stay in registers and the unrolled tile loops index them
+//     with constants. ptxas -v still reports spills at Dh 96, 128 and 160
+//     (64, 232 and 2072 bytes of stores and loads, the same as before the
+//     bf16 redesign): this kernel serves the parity checks only.
 // Head dims: every one of the model registry's, 64 and 96 (Prismer-BASE),
 // 80 (ViT-H/14's trunk), 128 and 160 (the LARGE and HUGE resamplers).
-// None of the index arithmetic assumes a power of two: rows are cut into
-// 16-byte vectors and 8-wide mma tiles, and every head dim is a multiple
-// of 16. What the wide ones change:
-//   * bf16: Q is staged through the K tile's shared memory (its fragments
-//     then live in registers), so Q, K and V^T fit the 48 KB of static
-//     shared memory up to Dh 160; per thread, Dh / 2 fp32 output values
-//     plus Dh / 4 Q fragment words stay in registers (120 at Dh 160);
-//   * fp32: above Dh 96 a thread's query row moves from registers to
-//     shared memory (row stride Dh + 1, so the 32 rows a warp reads at once
-//     sit in distinct banks), a block takes 32 rows and a key tile 8 keys,
-//     so that the thread's Dh accumulators stay in registers and the
-//     unrolled tile loops index them with constants (ptxas -v: no spills).
-// Not yet done (later work): wgmma, TMA loads, double-buffered tiles, and
-// splitting long K across blocks for few-query shapes (the resampler's 64
-// latents give only B*H blocks).
 //
 // Numerics follow the JAX reference (mha_reference, flash_attention.py:57):
 // scores and softmax statistics in fp32 from input-dtype operands; masked
 // scores replaced by the finite -1e9 fill; causal keeps col <= row + (Lk-Lq);
-// probabilities rounded to the input dtype before the PV product, which
-// accumulates in fp32; out in the input dtype, lse = m + log(l) in fp32.
+// keys past Lk take no part; probabilities rounded to the input dtype
+// before the PV product, which accumulates in fp32; out = o / max(l, 1e-30)
+// in the input dtype, lse = m + log(l) in fp32, (B, H, Lq) contiguous.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -222,247 +248,440 @@ flash_fwd_f32_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernel
+// bf16: wgmma products on TMA-fed tiles
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaBQ = 64;     // query rows per block (16 per warp)
-constexpr int kMmaBK = 64;     // keys per tile
-constexpr int kMmaThreads = 128;
+using hopper::acc_to_a;
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_wait;
+using hopper::pack_bf16;
+using hopper::smem_addr;
+using hopper::tma_load_4d;
 
-__device__ __forceinline__ uint32_t ld_b32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+constexpr int kRows = 64;    // query rows of a consumer warpgroup (wgmma M)
+
+__host__ __device__ constexpr int col_blocks(int dh) {
+  return (dh + 63) / 64;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// keys per streamed tile: 64, and 32 at Dh 160, where O's 80 fp32 per
+// thread leave too few of the 168 registers that ptxas grants a thread of
+// a three-warpgroup block for 64-key scores
+__host__ __device__ constexpr int tile_keys(int dh) {
+  return dh > 128 ? 32 : 64;
 }
 
-// d += a (16x16, row) * b (16x8, col); bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct TcParams {
+  CUtensorMap q, k, v;   // rank 4 (Dh, L, H, B); boxes of 64 / BK rows
+  void* o;
+  int64_t o_sb, o_sh, o_sl;
+  float* lse;            // (B, H, Lq) contiguous
+  const int* key_mask;   // (B, Lk) with row stride mask_sb, or null
+  int64_t mask_sb;
+  int H, Lq, Lk;
+  int causal;
+  float scale;
+};
 
+// Shared memory of one block, in bytes from a 1024-aligned base: GROUPS Q
+// tiles, STAGES x (K tile, V tile), STAGES x BK key flags and the barriers
+// (Q loaded; stage full; stage free). Tiles are column blocks of 64 bf16
+// ([block][row][64], 128-byte swizzle). The ring kernel: two warpgroups and
+// four stages, at most 160 KB (Dh 96 and 128), an even count as its split
+// needs; the single-tile kernel: one warpgroup, one stage.
+template <int DH, int GROUPS, int STAGES>
+struct FwdLayout {
+  static constexpr int kKeys = tile_keys(DH);
+  static constexpr int kQTile = col_blocks(DH) * kRows * 128;
+  static constexpr int kKvTile = col_blocks(DH) * kKeys * 128;
+  static constexpr int kQ = 0;
+  static constexpr int kK = GROUPS * kQTile;
+  static constexpr int kV = kK + STAGES * kKvTile;
+  static constexpr int kFlags = kV + STAGES * kKvTile;
+  static constexpr int kBars = kFlags + STAGES * kKeys * 4;
+  static constexpr size_t kBytes = kBars + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+// The consumer warpgroup's state: O (64 rows x DH, fp32, accumulator
+// layout: o[4n + 2hh + e] is row r0 + 8hh, column 8n + 2tig + e), the
+// running row max m (natural units) and this thread's part of the row
+// sum l, for its rows r0 and r0 + 8.
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const Params p) {
-  static_assert(DH % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int BQ = kMmaBQ, BK = kMmaBK;
-  constexpr int QS = DH + 8;   // Q/K smem row stride (bf16): no bank conflicts
-  constexpr int VS = BK + 8;   // V^T smem row stride
-  constexpr int NKK = DH / 16; // k-steps of QK^T
-  constexpr int NDT = DH / 8;  // 8-wide output tiles
-  constexpr int VEC = 8;       // bf16 per 16-byte load
-  static_assert(BQ == BK, "Q is staged through the K tile");
-  // Q passes through ks once: its fragments are read into registers before
-  // the first K tile overwrites it (the loop starts with a barrier)
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * QS];
-  __shared__ __align__(16) __nv_bfloat16 vt[DH * VS];
-  __nv_bfloat16* qs = ks;
-  __shared__ int valid[BK];    // 1 keep, 0 masked (-1e9), -1 past Lk (skip)
+struct Rows {
+  float o[DH / 2];
+  float m[2];
+  float l[2];
+  int r0, tig;
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int gid = lane >> 2;   // row within the 8-row half of a fragment
-  const int tig = lane & 3;    // column pair within a fragment
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+// One key tile of a warpgroup's stream (keys k0 .. k0 + BK - 1; flags null
+// without a key mask): S = Q K^T from shared memory into sc, the scale, the
+// masks and the online softmax in registers, then O += P V with P rounded
+// to bf16 as the register A operand and V read MN-major. sc is the
+// caller's, live across tiles: 5 % faster at Dh 64 than scores local to
+// the tile (same card, one call; PERF.md section 6).
+template <int DH, int BK>
+__device__ __forceinline__ void attend_tile(const TcParams& p, Rows<DH>& w,
+                                            uint32_t q_tile, uint32_t k_tile,
+                                            uint32_t v_tile, const int* flags,
+                                            int k0, float* sc) {
+  const float neg_inf = -__int_as_float(0x7f800000);
+  fence_regs<BK / 2>(sc);
+  hopper::wgmma_fence();
+  hopper::wgmma_ss_rows<DH, BK>(sc, q_tile, k_tile);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  fence_regs<BK / 2>(sc);
 
-  using bf16 = __nv_bfloat16;
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
-
-  for (int e = tid; e < BQ * DH / VEC; e += kMmaThreads) {
-    const int r = e / (DH / VEC);
-    const int c = (e - r * (DH / VEC)) * VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < p.Lq) {
-      val = *reinterpret_cast<const uint4*>(qb + (q0 + r) * p.q_sl + c);
-    }
-    *reinterpret_cast<uint4*>(&qs[r * QS + c]) = val;
-  }
-  __syncthreads();
-  const int rw = warp * 16 + gid;   // this thread's rows: rw and rw + 8
-  uint32_t qf[NKK][4];
+  // the tile's row max: sc[4j + 2hh + e] is row r0 + 8hh, key
+  // k0 + 8j + 2tig + e. A tile with no masked or past-Lk key keeps the
+  // unscaled q.k (its max times scale is the max of the scores, exactly);
+  // the others hold scores, -1e9 where masked (in max and sum, as in the
+  // reference) and -inf past Lk (in neither)
+  const bool edge = k0 + BK > p.Lk || flags != nullptr || p.causal;
+  float tmax[2] = {neg_inf, neg_inf};
+  if (edge) {
+    const int causal_off = p.Lk - p.Lq;
 #pragma unroll
-  for (int kk = 0; kk < NKK; ++kk) {
-    qf[kk][0] = ld_b32(&qs[rw * QS + kk * 16 + tig * 2]);
-    qf[kk][1] = ld_b32(&qs[(rw + 8) * QS + kk * 16 + tig * 2]);
-    qf[kk][2] = ld_b32(&qs[rw * QS + kk * 16 + 8 + tig * 2]);
-    qf[kk][3] = ld_b32(&qs[(rw + 8) * QS + kk * 16 + 8 + tig * 2]);
-  }
-
-  float o[NDT][4];
-#pragma unroll
-  for (int t = 0; t < NDT; ++t) o[t][0] = o[t][1] = o[t][2] = o[t][3] = 0.f;
-  float m[2] = {kMInit, kMInit};
-  float l[2] = {0.f, 0.f};   // this thread's partial row sums
-  const int row[2] = {q0 + rw, q0 + rw + 8};
-  const int causal_off = p.Lk - p.Lq;
-
-  for (int k0 = 0; k0 < p.Lk; k0 += BK) {
-    __syncthreads();   // previous tile fully consumed
-    for (int e = tid; e < BK * DH / VEC; e += kMmaThreads) {
-      const int r = e / (DH / VEC);
-      const int c = (e - r * (DH / VEC)) * VEC;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + r < p.Lk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (k0 + r) * p.k_sl + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (k0 + r) * p.v_sl + c);
-      }
-      *reinterpret_cast<uint4*>(&ks[r * QS + c]) = kv;
-      const bf16* v8 = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) vt[(c + i) * VS + r] = v8[i];
-    }
-    for (int r = tid; r < BK; r += kMmaThreads) {
-      const int col = k0 + r;
-      int f = -1;
-      if (col < p.Lk) {
-        f = 1;
-        if (p.key_mask != nullptr && p.key_mask[b * p.mask_sb + col] == 0) {
-          f = 0;
-        }
-      }
-      valid[r] = f;
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* krow = &ks[(nt * 8 + gid) * QS + tig * 2];
-#pragma unroll
-      for (int kk = 0; kk < NKK; ++kk) {
-        mma_bf16(s[nt], qf[kk], ld_b32(krow + kk * 16),
-                 ld_b32(krow + kk * 16 + 8));
-      }
-    }
-
-    // scale, mask, online softmax (fragment: [half*2 + e] is row
-    // rw + 8*half, column nt*8 + tig*2 + e)
-    float tmax[2] = {kMInit, kMInit};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
+    for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int cl = nt * 8 + tig * 2 + e;
-        const int f = valid[cl];
+        const int c = 8 * j + 2 * w.tig + e;
+        const int col = k0 + c;
+        const bool keep = flags == nullptr || flags[c] != 0;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          float x = s[nt][half * 2 + e] * p.scale;
-          if (f == 0 || (p.causal && k0 + cl > row[half] + causal_off)) {
-            x = kMaskFill;
+        for (int hh = 0; hh < 2; ++hh) {
+          const int x = 4 * j + 2 * hh + e;
+          float v = sc[x] * p.scale;
+          if (!keep || (p.causal && col > w.r0 + 8 * hh + causal_off)) {
+            v = kMaskFill;
           }
-          s[nt][half * 2 + e] = x;
-          if (f >= 0) tmax[half] = fmaxf(tmax[half], x);
+          if (col >= p.Lk) v = neg_inf;
+          sc[x] = v;
+          tmax[hh] = fmaxf(tmax[hh], v);
         }
       }
     }
-    float alpha[2];
+  } else {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      tmax[half] = fmaxf(tmax[half],
-                         __shfl_xor_sync(0xffffffffu, tmax[half], 1));
-      tmax[half] = fmaxf(tmax[half],
-                         __shfl_xor_sync(0xffffffffu, tmax[half], 2));
-      const float m_new = fmaxf(m[half], tmax[half]);
-      alpha[half] = exp2f((m[half] - m_new) * kLog2e);
-      m[half] = m_new;
-      l[half] *= alpha[half];
+    for (int x = 0; x < BK / 2; ++x) {
+      tmax[(x >> 1) & 1] = fmaxf(tmax[(x >> 1) & 1], sc[x]);
     }
-#pragma unroll
-    for (int t = 0; t < NDT; ++t) {
-      o[t][0] *= alpha[0];
-      o[t][1] *= alpha[0];
-      o[t][2] *= alpha[1];
-      o[t][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool keep = valid[nt * 8 + tig * 2 + e] >= 0;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const float pr =
-              keep ? exp2f((s[nt][half * 2 + e] - m[half]) * kLog2e) : 0.f;
-          l[half] += pr;
-          s[nt][half * 2 + e] = pr;
-        }
-      }
-    }
-
-    // O += P V: the score fragments of key tiles (2j, 2j+1) are the A
-    // fragment of k-step j; probabilities are rounded to bf16 here
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int t = 0; t < NDT; ++t) {
-        const bf16* vrow = &vt[(t * 8 + gid) * VS + j * 16 + tig * 2];
-        mma_bf16(o[t], a, ld_b32(vrow), ld_b32(vrow + 8));
-      }
-    }
+    tmax[0] *= p.scale;
+    tmax[1] *= p.scale;
   }
 
+  // online softmax: rescale the row's sum and O, then p = exp(s - m)
+  float alpha[2], ml[2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
-    l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+  for (int hh = 0; hh < 2; ++hh) {
+    tmax[hh] = fmaxf(tmax[hh], __shfl_xor_sync(0xffffffffu, tmax[hh], 1));
+    tmax[hh] = fmaxf(tmax[hh], __shfl_xor_sync(0xffffffffu, tmax[hh], 2));
+    const float m_new = fmaxf(w.m[hh], tmax[hh]);
+    alpha[hh] = exp2f((w.m[hh] - m_new) * kLog2e);
+    w.m[hh] = m_new;
+    w.l[hh] *= alpha[hh];
+    ml[hh] = m_new * kLog2e;
   }
+#pragma unroll
+  for (int x = 0; x < DH / 2; ++x) w.o[x] *= alpha[(x >> 1) & 1];
+  const float to_log2 = edge ? kLog2e : p.scale * kLog2e;
+#pragma unroll
+  for (int x = 0; x < BK / 2; ++x) {
+    const int hh = (x >> 1) & 1;
+    sc[x] = exp2f(fmaf(sc[x], to_log2, -ml[hh]));
+    w.l[hh] += sc[x];
+  }
+
+  // O += P V
+  uint32_t pa[BK / 16][4];
+#pragma unroll
+  for (int t = 0; t < BK / 16; ++t) acc_to_a(sc, t, pa[t]);
+  fence_regs<DH / 2>(w.o);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < BK / 16; ++t) {
+    hopper::wgmma_rs_wide<DH, BK>(w.o, pa[t], v_tile, t);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  fence_regs<DH / 2>(w.o);
+#pragma unroll
+  for (int t = 0; t < BK / 16; ++t) fence_regs<4>(pa[t]);
+}
+
+// A warpgroup's rows before the stream: O = 0, no max, no sum
+template <int DH>
+__device__ __forceinline__ void start_rows(Rows<DH>& w, int row0) {
+  const int tid = threadIdx.x % 128;
+  w.r0 = row0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+  w.tig = tid & 3;
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) w.o[i] = 0.f;
+  w.m[0] = w.m[1] = kMInit;
+  w.l[0] = w.l[1] = 0.f;
+}
+
+// the quad's row sums
+template <int DH>
+__device__ __forceinline__ void sum_rows(Rows<DH>& w) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    w.l[hh] += __shfl_xor_sync(0xffffffffu, w.l[hh], 1);
+    w.l[hh] += __shfl_xor_sync(0xffffffffu, w.l[hh], 2);
+  }
+}
+
+// out = o / max(l, 1e-30) in bf16 and lse = m + log(l) for the rows < Lq
+template <int DH>
+__device__ __forceinline__ void store_rows(const TcParams& p, const Rows<DH>& w,
+                                           int b, int h) {
+  using bf16 = __nv_bfloat16;
   bf16* ob = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    if (row[half] >= p.Lq) continue;
-    const float denom = fmaxf(l[half], 1e-30f);
-    bf16* orow = ob + row[half] * p.o_sl + tig * 2;
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = w.r0 + 8 * hh;
+    if (row >= p.Lq) continue;
+    const float denom = fmaxf(w.l[hh], 1e-30f);
+    bf16* orow = ob + row * p.o_sl + 2 * w.tig;
 #pragma unroll
-    for (int t = 0; t < NDT; ++t) {
-      *reinterpret_cast<uint32_t*>(orow + t * 8) =
-          pack_bf16(o[t][half * 2] / denom, o[t][half * 2 + 1] / denom);
+    for (int n = 0; n < DH / 8; ++n) {
+      const int x = 4 * n + 2 * hh;
+      *reinterpret_cast<uint32_t*>(orow + 8 * n) =
+          pack_bf16(w.o[x] / denom, w.o[x + 1] / denom);
     }
-    if (tig == 0) {
-      p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Lq + row[half]] =
-          m[half] + logf(denom);
+    if (w.tig == 0) {
+      p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Lq + row] =
+          w.m[hh] + logf(denom);
     }
   }
+}
+
+// the key flags of keys k0 .. k0 + BK - 1 (1 keep, 0 masked) into `flags`,
+// thread i of n writing keys i, i + n, ...
+template <int BK>
+__device__ __forceinline__ void stage_flags(const TcParams& p, int b, int k0,
+                                            int i, int n, int* flags) {
+  for (int r = i; r < BK; r += n) {
+    const int col = k0 + r;
+    flags[r] = col < p.Lk && p.key_mask[b * p.mask_sb + col] != 0;
+  }
+}
+
+constexpr int kRingGroups = 2;                        // consumer warpgroups
+constexpr int kRingConsumers = 128 * kRingGroups;
+constexpr int kRingThreads = kRingConsumers + 32;     // and a producer warp
+constexpr int kRingStages = 4;
+
+// grid (ceil(Lq / 128), H, B): two consumer warpgroups, then the producer
+// warp
+template <int DH>
+__global__ void __launch_bounds__(kRingThreads, 1)
+flash_fwd_ring_kernel(const __grid_constant__ TcParams p) {
+  using L = FwdLayout<DH, kRingGroups, kRingStages>;
+  constexpr int CB = col_blocks(DH);
+  constexpr int STAGES = kRingStages;
+  constexpr int BK = L::kKeys;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = blockIdx.x * kRingGroups * kRows;
+  const int n_tiles = (p.Lk + BK - 1) / BK;
+  // warpgroups with query rows of their own; where only the first has any,
+  // both take its rows and split the key tiles: warpgroup w takes those
+  // of the stages s with s % 2 == w, so that it waits on every phase of
+  // their barriers (a parity wait that skipped one could pass a phase
+  // early)
+  const int owners = min(kRingGroups, (p.Lq - q0 + kRows - 1) / kRows);
+  const bool split = owners == 1;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], split ? 128 : kRingConsumers);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kRingConsumers) {
+    // the producer: Q once, then K and V tile by tile (lane 0), the key
+    // flags beside them (all lanes), each stage after its last reader
+    // freed it
+    const int lane = threadIdx.x - kRingConsumers;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, owners * L::kQTile);
+      for (int g = 0; g < owners; ++g) {
+        for (int c = 0; c < CB; ++c) {
+          tma_load_4d(smem + L::kQ + g * L::kQTile + c * kRows * 128, &p.q,
+                      q_full, 64 * c, q0 + g * kRows, h, b);
+        }
+      }
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % STAGES;
+      if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+      if (p.key_mask != nullptr) {
+        stage_flags<BK>(p, b, it * BK, lane, 32,
+                        reinterpret_cast<int*>(smem + L::kFlags) + s * BK);
+      }
+      if (lane != 0) {
+        mbar_arrive(&full[s]);
+        continue;
+      }
+      hopper::mbar_arrive_expect_tx(&full[s], 2 * L::kKvTile);
+      for (int c = 0; c < CB; ++c) {
+        tma_load_4d(smem + L::kK + s * L::kKvTile + c * BK * 128, &p.k,
+                    &full[s], 64 * c, it * BK, h, b);
+        tma_load_4d(smem + L::kV + s * L::kKvTile + c * BK * 128, &p.v,
+                    &full[s], 64 * c, it * BK, h, b);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  const int own = split ? 0 : wg;   // whose Q rows
+  const uint32_t base = smem_addr(smem);
+  const uint32_t q_tile = base + L::kQ + own * L::kQTile;
+  Rows<DH> w;
+  start_rows(w, q0 + own * kRows);
+  // this warpgroup's first tile after `it`
+  auto next = [&](int it) {
+    do {
+      ++it;
+    } while (split && it < n_tiles && (it % STAGES) % 2 != wg);
+    return it;
+  };
+
+  float sc[BK / 2];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+  mbar_wait(q_full, 0);
+  for (int it = next(-1); it < n_tiles; it = next(it)) {
+    const int s = it % STAGES;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    const int* flags = p.key_mask == nullptr
+        ? nullptr
+        : reinterpret_cast<const int*>(smem + L::kFlags) + s * BK;
+    attend_tile<DH, BK>(p, w, q_tile, base + L::kK + s * L::kKvTile,
+                        base + L::kV + s * L::kKvTile, flags, it * BK, sc);
+    mbar_arrive(&empty[s]);
+  }
+  sum_rows(w);
+
+  if (split) {
+    // the second warpgroup's (m, l, O) into the first's, in that order,
+    // through the tiles' shared memory ([DH / 2 + 4][128] fp32)
+    static_assert((DH / 2 + 4) * 128 * 4 <= L::kFlags, "exchange");
+    const int tid = threadIdx.x % 128;
+    float* xs = reinterpret_cast<float*>(smem);
+    hopper::named_sync(1, kRingConsumers);   // both are done with the tiles
+    if (wg == 1) {
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) xs[i * 128 + tid] = w.o[i];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        xs[(DH / 2 + hh) * 128 + tid] = w.m[hh];
+        xs[(DH / 2 + 2 + hh) * 128 + tid] = w.l[hh];
+      }
+    }
+    hopper::named_sync(1, kRingConsumers);
+    if (wg == 1) return;
+    float a[2], c[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float m1 = xs[(DH / 2 + hh) * 128 + tid];
+      const float l1 = xs[(DH / 2 + 2 + hh) * 128 + tid];
+      const float m_new = fmaxf(w.m[hh], m1);
+      a[hh] = exp2f((w.m[hh] - m_new) * kLog2e);
+      c[hh] = exp2f((m1 - m_new) * kLog2e);
+      w.l[hh] = w.l[hh] * a[hh] + l1 * c[hh];
+      w.m[hh] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) {
+      w.o[i] = w.o[i] * a[(i >> 1) & 1] + xs[i * 128 + tid] * c[(i >> 1) & 1];
+    }
+  }
+  store_rows(p, w, b, h);
+}
+
+// grid (ceil(Lq / 64), H, B), Lk <= BK: one warpgroup and one key tile,
+// loaded with Q in one TMA round by thread 0; no producer warp, so that
+// several of these small blocks share an SM (the decoder's prefill and
+// self-attention)
+template <int DH>
+__global__ void __launch_bounds__(128)
+flash_fwd_tile_kernel(const __grid_constant__ TcParams p) {
+  using L = FwdLayout<DH, 1, 1>;
+  constexpr int CB = col_blocks(DH);
+  constexpr int BK = L::kKeys;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  int* flags = p.key_mask == nullptr
+      ? nullptr
+      : reinterpret_cast<int*>(smem + L::kFlags);
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kRows;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::mbar_init_fence();
+  }
+  if (flags != nullptr) stage_flags<BK>(p, b, 0, threadIdx.x, 128, flags);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::mbar_arrive_expect_tx(bar, L::kQTile + 2 * L::kKvTile);
+    for (int c = 0; c < CB; ++c) {
+      tma_load_4d(smem + L::kQ + c * kRows * 128, &p.q, bar, 64 * c, q0, h,
+                  b);
+      tma_load_4d(smem + L::kK + c * BK * 128, &p.k, bar, 64 * c, 0, h, b);
+      tma_load_4d(smem + L::kV + c * BK * 128, &p.v, bar, 64 * c, 0, h, b);
+    }
+  }
+  Rows<DH> w;
+  start_rows(w, q0);
+  const uint32_t base = smem_addr(smem);
+  mbar_wait(bar, 0);
+  float sc[BK / 2];
+  attend_tile<DH, BK>(p, w, base + L::kQ, base + L::kK, base + L::kV, flags,
+                      0, sc);
+  sum_rows(w);
+  store_rows(p, w, b, h);
 }
 
 template <int DH>
-cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.Lq + kMmaBQ - 1) / kMmaBQ, p.H, p.B);
-  flash_fwd_mma_kernel<DH><<<grid, kMmaThreads, 0, stream>>>(p);
+cudaError_t launch_tc(const TcParams& p, int B, cudaStream_t stream) {
+  if (p.Lk <= tile_keys(DH)) {
+    static bool granted = false;
+    constexpr size_t smem = FwdLayout<DH, 1, 1>::kBytes;
+    if (!granted) {
+      const cudaError_t err =
+          hopper::grant_smem(flash_fwd_tile_kernel<DH>, smem);
+      if (err != cudaSuccess) return err;
+      granted = true;
+    }
+    const dim3 grid((p.Lq + kRows - 1) / kRows, p.H, B);
+    flash_fwd_tile_kernel<DH><<<grid, 128, smem, stream>>>(p);
+    return cudaGetLastError();
+  }
+  static bool granted = false;
+  constexpr size_t smem = FwdLayout<DH, kRingGroups, kRingStages>::kBytes;
+  if (!granted) {
+    const cudaError_t err =
+        hopper::grant_smem(flash_fwd_ring_kernel<DH>, smem);
+    if (err != cudaSuccess) return err;
+    granted = true;
+  }
+  const int rows = kRingGroups * kRows;
+  const dim3 grid((p.Lq + rows - 1) / rows, p.H, B);
+  flash_fwd_ring_kernel<DH><<<grid, kRingThreads, smem, stream>>>(p);
   return cudaGetLastError();
-}
-
-// the bf16 kernel's 16-byte loads need every row start 16-byte aligned
-bool mma_aligned(const Params& p) {
-  const int64_t strides[] = {p.q_sb, p.q_sh, p.q_sl, p.k_sb, p.k_sh, p.k_sl,
-                             p.v_sb, p.v_sh, p.v_sl, p.o_sb, p.o_sh, p.o_sl};
-  for (int64_t s : strides) {
-    if (s % 8 != 0) return false;
-  }
-  const void* ptrs[] = {p.q, p.k, p.v, p.o};
-  for (const void* ptr : ptrs) {
-    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
-  }
-  return true;
 }
 
 template <int DH, int BK, int BQ>
@@ -472,9 +691,12 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
+// bf16 needs 16-byte aligned bases and every stride a multiple of 8
+// elements; the call builds the TMA tensor maps from them.
 extern "C" int prismer_flash_attention(
     const void* q, const void* k, const void* v, void* o, float* lse,
     const int* key_mask, int B, int H, int Lq, int Lk, int Dh,
@@ -484,11 +706,11 @@ extern "C" int prismer_flash_attention(
     int64_t o_sb, int64_t o_sh, int64_t o_sl,
     int64_t mask_sb, int causal, int dtype, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0) return cudaErrorInvalidValue;
-  Params p{q, k, v, o, lse, key_mask, B, H, Lq, Lk,
-           q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
-           o_sb, o_sh, o_sl, mask_sb, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    Params p{q, k, v, o, lse, key_mask, B, H, Lq, Lk,
+             q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl,
+             o_sb, o_sh, o_sl, mask_sb, causal, scale};
     switch (Dh) {
       case 64: return launch_f32<64, 32, 64>(p, s);
       case 80: return launch_f32<80, 16, 64>(p, s);
@@ -498,13 +720,39 @@ extern "C" int prismer_flash_attention(
       default: return cudaErrorInvalidValue;
     }
   }
-  if (dtype != 1 || !mma_aligned(p)) return cudaErrorInvalidValue;
+  const void* ptrs[] = {q, k, v, o};
+  const int64_t strides[] = {q_sb, q_sh, q_sl, k_sb, k_sh, k_sl,
+                             v_sb, v_sh, v_sl, o_sb, o_sh, o_sl};
+  if (dtype != 1 || !hopper::aligned(ptrs, 4, strides, 12, 8)) {
+    return cudaErrorInvalidValue;
+  }
+  TcParams p{};
+  if (!hopper::encode_bf16_rows(&p.q, q, B, H, Lq, Dh, q_sb, q_sh, q_sl,
+                                kRows) ||
+      !hopper::encode_bf16_rows(&p.k, k, B, H, Lk, Dh, k_sb, k_sh, k_sl,
+                                tile_keys(Dh)) ||
+      !hopper::encode_bf16_rows(&p.v, v, B, H, Lk, Dh, v_sb, v_sh, v_sl,
+                                tile_keys(Dh))) {
+    return cudaErrorInvalidValue;
+  }
+  p.o = o;
+  p.o_sb = o_sb;
+  p.o_sh = o_sh;
+  p.o_sl = o_sl;
+  p.lse = lse;
+  p.key_mask = key_mask;
+  p.mask_sb = mask_sb;
+  p.H = H;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.causal = causal;
+  p.scale = scale;
   switch (Dh) {
-    case 64: return launch_mma<64>(p, s);
-    case 80: return launch_mma<80>(p, s);
-    case 96: return launch_mma<96>(p, s);
-    case 128: return launch_mma<128>(p, s);
-    case 160: return launch_mma<160>(p, s);
+    case 64: return launch_tc<64>(p, B, s);
+    case 80: return launch_tc<80>(p, B, s);
+    case 96: return launch_tc<96>(p, B, s);
+    case 128: return launch_tc<128>(p, B, s);
+    case 160: return launch_tc<160>(p, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -89,15 +89,8 @@ namespace {
 
 constexpr float kMaskFill = -1.0e9f;   // flash_attention.py:54 NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr size_t kMaxSmem = 227 * 1024;
 
-template <typename K>
-cudaError_t grant_smem(K kernel, size_t bytes) {
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
+using hopper::grant_smem;
 
 // ---------------------------------------------------------------------------
 // fp32: FMA tiles
@@ -583,9 +576,7 @@ struct TcLayout {
   static constexpr size_t kBytes = kBars + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* raw) {
-  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
-}
+using hopper::align_1024;
 
 // Barrier setup, then the producer warp's whole life: the owned tiles once
 // (rows own_row), then for each streamed tile (rows it * ROWS) the two
@@ -915,18 +906,6 @@ cudaError_t launch_dq_tc(const TcParams& p, cudaStream_t stream) {
 // host entry
 // ---------------------------------------------------------------------------
 
-// every stride a multiple of `elems` elements and every base 16-byte
-// aligned: 16-byte fp32 loads and stores; TMA boxes of bf16 rows
-bool aligned(const void* const* ptrs, const int64_t* strides, int elems) {
-  for (int i = 0; i < 21; ++i) {
-    if (strides[i] % elems != 0) return false;
-  }
-  for (int i = 0; i < 7; ++i) {
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
-  }
-  return true;
-}
-
 template <typename F>
 int by_head_dim(int Dh, F&& f) {
   switch (Dh) {
@@ -948,7 +927,9 @@ int launch(bool dkv, const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
   if (dtype == 0) {
-    if (!aligned(ptrs, strides, 4)) return cudaErrorInvalidValue;
+    if (!hopper::aligned(ptrs, 7, strides, 21, 4)) {
+      return cudaErrorInvalidValue;
+    }
     Params p{q, k, v, dout, lse, delta, key_mask, dq, dk, dv, B, H, Lq, Lk,
              {}, mask_sb, causal, scale};
     for (int t = 0; t < 7; ++t) {
@@ -959,7 +940,9 @@ int launch(bool dkv, const void* q, const void* k, const void* v,
       return dkv ? launch_dkv_f32<kDh>(p, st) : launch_dq_f32<kDh>(p, st);
     });
   }
-  if (dtype != 1 || !aligned(ptrs, strides, 8)) return cudaErrorInvalidValue;
+  if (dtype != 1 || !hopper::aligned(ptrs, 7, strides, 21, 8)) {
+    return cudaErrorInvalidValue;
+  }
   TcParams p{};
   const int64_t* s = strides;   // q 0, k 3, v 6, dout 9, dq 12, dk 15, dv 18
   auto map = [&](CUtensorMap* m, const void* t, int L, const int64_t* ts,

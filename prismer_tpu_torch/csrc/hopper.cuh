@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: TMA tensor loads,
 // mbarriers, and warpgroup matrix products (wgmma) with their shared-memory
-// descriptors. Used by the flash-attention backward kernels
-// (flash_attention_bwd.cu); written without CUTLASS / CuTe so that every
-// build error names a line of this repository.
+// descriptors. Used by the flash-attention forward and backward kernels
+// (flash_attention.cu, flash_attention_bwd.cu); written without CUTLASS /
+// CuTe so that every build error names a line of this repository.
 //
 // Shared-memory tiles are bf16, 64 columns (128 bytes) per row, in the
 // 128-byte swizzle that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes
@@ -91,12 +91,49 @@ inline bool encode_bf16_rows(CUtensorMap* map, const void* base, int B, int H,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// every base 16-byte aligned and every stride a multiple of `elems`
+// elements: 8 for the bf16 tensor maps above (16-byte rows), 4 for fp32
+// kernels that move rows in 16-byte vectors
+inline bool aligned(const void* const* ptrs, int n_ptrs,
+                    const int64_t* strides, int n_strides, int elems) {
+  for (int i = 0; i < n_strides; ++i) {
+    if (strides[i] % elems != 0) return false;
+  }
+  for (int i = 0; i < n_ptrs; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+  }
+  return true;
+}
+
+constexpr size_t kMaxSmem = 227 * 1024;   // a block's shared memory on sm_90
+
+// allow `kernel` `bytes` of dynamic shared memory (above 48 KB needs it)
+template <typename K>
+cudaError_t grant_smem(K kernel, size_t bytes) {
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 // ---------------------------------------------------------------------------
 // device: mbarriers and TMA
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the first 1024-byte boundary at or after `raw` (the swizzle's period);
+// a kernel asks for 1024 bytes more than its layout for it
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+// barrier `id` (1-15; 0 is __syncthreads) among `threads` threads, a
+// multiple of 32
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -197,6 +234,14 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// the same for register A operands: kept unchanged (and their registers
+// not reused) until here, after the wait that ends the product reading them
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

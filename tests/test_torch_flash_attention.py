@@ -77,12 +77,16 @@ def test_head_split_matches_jax(name, lq, lk, masked, causal, dh):
 
 
 # H a multiple of the JAX kernel's lane group: 8 heads at Dh=16, 2 at 64,
-# 4 at 96 (ops/flash_attention.py _head_group)
+# 4 at 96, 8 at 80, 1 at 128, 4 at 160 (ops/flash_attention.py
+# _head_group); 80, 128 and 160 are the LARGE / HUGE head dims
 @pytest.mark.parametrize("h,dh,lq,lk", [
     (8, 16, 13, 40),
     (4, 64, 37, 37),
     (2, 64, 13, 70),
     (4, 96, 20, 53),
+    (8, 80, 9, 21),
+    (2, 128, 11, 26),
+    (4, 160, 7, 19),
 ])
 def test_packed_matches_jax(h, dh, lq, lk):
     q, k, v = make_qkv(h * dh + lk, 2, h, lq, lk, dh)
@@ -138,3 +142,18 @@ def test_bf16_probabilities_cast_before_pv():
                                np.asarray(want.astype(jnp.float32)),
                                atol=1e-2, rtol=0)
 
+
+
+@pytest.mark.parametrize("h,dh,lq,lk", [(8, 80, 9, 23)])
+def test_bf16_packed_matches_jax_reference(h, dh, lq, lk):
+    """bf16 packed attention at ViT-H/14's head dim against JAX
+    mha_reference in bf16 (probabilities and output rounded where JAX
+    rounds them); atol 1e-2, as above."""
+    q, k, v = (torch.from_numpy(pack(t)).to(torch.bfloat16)
+               for t in make_qkv(dh + lk, 2, h, lq, lk, dh))
+    got, lse = tfa.flash_attention_packed_lse(q, k, v, h)
+    assert got.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    heads = [jnp.asarray(tfa._heads(t, h).float().numpy(), jnp.bfloat16)
+             for t in (q, k, v)]
+    want = pack(np.asarray(jfa.mha_reference(*heads).astype(jnp.float32)))
+    np.testing.assert_allclose(got.float().numpy(), want, atol=1e-2, rtol=0)

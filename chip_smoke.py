@@ -44,6 +44,13 @@ path, the same for one train step with its encoder / decoder / optimizer
 split, and for one batch-16 segmentation forward its backbone / pixel
 decoder / decoder / post split and the deformable-attention kernel's share.
 
+The grouped decode cross-attention (kernels 11-12) is held to its plain
+version also at its key split's edge shapes and on the prefill's head-split
+K/V views, and timed twice: L2-warm (one input set, replayed) and L2-cold
+(a graph cycling through one K/V set per cross layer, as the decode loop
+reads another layer's cache on every call); its `kernels` entries carry the
+cold times.
+
 Every kernel's entry in the `kernels` line carries `bound_ms`, the least
 time the card could take for the timed call: the larger of its bytes (each
 input read once, each output written once) over 3.35 TB/s and its
@@ -771,9 +778,9 @@ def sdpa_backward_ms(q, k, v, dout, packed, h, dh, mask, causal) -> float:
 
 
 # `nvcc -Xptxas -v` of the attention kernels' sources, started beside the
-# library build in phase_build and read after check_attention (forward) and
-# check_flash_backward (backward)
-PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd")
+# library build in phase_build and read after check_attention (forward),
+# check_flash_backward (backward) and check_decode_attention (kernels 11-12)
+PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention")
 _PTXAS = {}
 
 
@@ -786,6 +793,21 @@ def start_ptxas(stems=PTXAS_SOURCES):
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
              str(obj), str(_build.CSRC / f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+
+
+def _kernel_name(entry):
+    """A readable name of a mangled kernel entry of the attention sources:
+    flash "<kernel> Dh <n>", grouped "<dtype> <mode> KT <n>"; else None."""
+    # the kernel's name follows its length in the mangled entry
+    k = re.search(r"\dflash_(\w+?)ILi(\d+)", entry)
+    if k:
+        return f"{k.group(1)} Dh {k.group(2)}"
+    k = re.search(r"grouped_attn_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d+)E",
+                  entry)
+    if k:
+        return (f"grouped {'f32' if k.group(1) == 'f' else 'bf16'} "
+                f"{('cross_t', 'decode')[int(k.group(2))]} KT {k.group(3)}")
+    return None
 
 
 def report_ptxas(stem, n_kernels, ungated=()):
@@ -810,9 +832,7 @@ def report_ptxas(stem, n_kernels, ungated=()):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry = m.group(1)
-            # the kernel's name follows its length in the mangled entry
-            k = re.search(r"\dflash_(\w+?)ILi(\d+)", entry)
-            name = f"{k.group(1)} Dh {k.group(2)}" if k else None
+            name = _kernel_name(entry)
         m = re.search(r"Function properties for (\w+)", line)
         if m:
             props = m.group(1)
@@ -1286,11 +1306,40 @@ def check_fused_decode_huge(results):
     torch.cuda.empty_cache()
 
 
+# the grouped decode cross-attention's model shapes (kernels 11, 12) as
+# (label, B, H, L, Q, cross layers): BASE's decode step (Q = 3 beams) and
+# prefill (3 beams x 4 prompt tokens), LARGE's (ViT-L/14 at 336 px) and
+# HUGE's decode steps. Cold timing cycles through one (k, v) set per cross
+# layer, as the decode loop reads another layer's cache on every call
+DECODE_ATTENTION_SHAPES = (("BASE", 8, 12, 964, 3, 12),
+                           ("BASE", 8, 12, 964, 12, 12),
+                           ("LARGE", 8, 16, 640, 3, 24),
+                           ("HUGE", 8, 16, 1220, 3, 24))
+# the split's edge shapes at B 2, H 3 as (L, Q): blocks of a cluster with
+# no keys or one (L 1, 7), a 64-key tile across a block's range end (L 65,
+# 513), one pass of 16 query rows (Q 1, 16) and several (17, 64)
+DECODE_ATTENTION_EDGES = tuple((l, nq) for l in (1, 7, 65, 513)
+                               for nq in (1, 16, 17, 64))
+
+
+def cycle_ms(fn, sets) -> float:
+    """graph_ms of calls that cycle through the argument tuples `sets`, two
+    rounds: each call reads another set, so once the sets outgrow the 50
+    MB L2 every call reads its operands from HBM (L2-cold)."""
+    it = iter(sets * 8)
+    return graph_ms(lambda: fn(*next(it)), iters=2 * len(sets))
+
+
 def check_decode_attention(results):
     """Kernels 11 (mode cross_t) and 12 (mode decode) against their plain
-    versions: Prismer-BASE batch 8 (H 12, L 964) at Q = 3 (a decode step)
-    and 12 (the prefill, 3 beams x 4 tokens), HUGE batch 8 (H 16, L 1220)
-    at Q = 3; fp32 and bf16; two launches bit-identical."""
+    versions, fp32 and bf16, two launches bit-identical: the split's edge
+    shapes (DECODE_ATTENTION_EDGES), BASE's prefill with the head-split
+    views of a projected (B, L, D) K/V read through their strides (and
+    `tma_layout_ok` refusing a view TMA cannot read), and the model shapes
+    (DECODE_ATTENTION_SHAPES). At each bf16 model shape: kernel, plain and
+    SDPA ms, warm (graph_ms on one input set, L2-resident) and cold
+    (cycle_ms over one set per cross layer), and the byte bound. Then
+    ptxas -v's registers and spills of the kernel's 11 instantiations."""
     import torch
     import torch.nn.functional as F
     from prismer_tpu_torch.ops import decode_attention as da
@@ -1298,45 +1347,101 @@ def check_decode_attention(results):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
     entries = {"cross_t": results["grouped_cross_attention"],
                "decode": results["grouped_decode_attention"]}
-    for label, b, h, l, nq in (("BASE", 8, 12, 964, 3), ("BASE", 8, 12, 964, 12),
-                               ("HUGE", 8, 16, 1220, 3)):
+
+    def held(q, k, v, what):
+        """Both modes against the plain version; the largest error."""
+        fp32 = q.dtype == torch.float32
+        tol = TOL_FP32 if fp32 else TOL_BF16_OUT
+        worst = 0.0
+        for mode, entry in entries.items():
+            got = da.grouped_cross_attention(q, k, v, mode)
+            again = da.grouped_cross_attention(q, k, v, mode)
+            want = da.grouped_attention_reference(q, k, v, mode)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            repeat = torch.equal(got, again)
+            finite = bool(torch.isfinite(got.float()).all())
+            expect(err <= tol and repeat and finite and got.shape == q.shape,
+                   f"grouped attention {mode} {what} {q.dtype}: max|err| "
+                   f"{err:.3g} (tol {tol}), repeat bit-identical {repeat}, "
+                   f"finite {finite}")
+            if fp32:
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            worst = max(worst, err)
+        return worst
+
+    for l, nq in DECODE_ATTENTION_EDGES:
+        q32, k32, v32 = (torch.randn(2, 3, n, 64, generator=gen,
+                                     device="cuda") for n in (nq, l, l))
+        errs = [held(q32.to(dt), k32.to(dt), v32.to(dt), f"L={l} Q={nq}")
+                for dt in (torch.float32, torch.bfloat16)]
+        log(f"  grouped attention edge B=2 H=3 L={l} Q={nq}: max|err| fp32 "
+            f"{errs[0]:.3g} (tol {TOL_FP32}), bf16 {errs[1]:.3g} (tol "
+            f"{TOL_BF16_OUT}), both modes, repeat bit-identical")
+
+    # the prefill's head-split views: (B, L, D) projections, uncopied
+    b, h, l, nq = 8, 12, 964, 12
+    q32 = torch.randn(b, h, nq, 64, generator=gen, device="cuda")
+    kv32 = torch.randn(2, b, l, h * 64, generator=gen, device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        k, v = (x.to(dt).view(b, l, h, 64).permute(0, 2, 1, 3) for x in kv32)
+        expect(not k.is_contiguous() and da.tma_layout_ok(k),
+               "head-split view layout")
+        err = held(q32.to(dt), k, v, "head-split views")
+        log(f"  grouped attention BASE prefill on head-split views (strides "
+            f"{k.stride()}) {str(dt)[6:]}: max|err| {err:.3g}, both modes")
+    # rows 8 bytes past 16-byte alignment: the wrapper raises on such a view
+    odd = torch.randn(b, h, l, 72, device="cuda", dtype=torch.bfloat16)[
+        ..., 4:68]
+    expect(not da.tma_layout_ok(odd), "a K/V view TMA cannot read passes")
+    del q32, kv32, odd
+
+    for label, b, h, l, nq, layers in DECODE_ATTENTION_SHAPES:
         q32, k32, v32 = (torch.randn(b, h, n, 64, generator=gen,
                                      device="cuda") for n in (nq, l, l))
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            err = held(q, k, v, f"{label} Q={nq}")
+            log(f"  grouped attention {label} B={b} H={h} L={l} Q={nq} "
+                f"{str(dtype)[6:]}: max|err| {err:.3g} (tol "
+                f"{TOL_FP32 if dtype == torch.float32 else TOL_BF16_OUT}), "
+                "both modes, repeat bit-identical")
+            if dtype == torch.float32:
+                continue
+            sets = [(q, k, v)] + [
+                (q, *(torch.randn(b, h, l, 64, generator=gen, device="cuda",
+                                  dtype=dtype) for _ in range(2)))
+                for _ in range(layers - 1)]
+            bound = {}
+            set_bound(bound, nbytes(q, k, v, q),   # the output is q's size
+                      4.0 * b * h * nq * l * 64, dtype)
+            lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            lib_cold = cycle_ms(F.scaled_dot_product_attention, sets)
             for mode, entry in entries.items():
-                got = da.grouped_cross_attention(q, k, v, mode)
-                again = da.grouped_cross_attention(q, k, v, mode)
-                want = da.grouped_attention_reference(q, k, v, mode)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                repeat = torch.equal(got, again)
-                finite = bool(torch.isfinite(got.float()).all())
-                fp32 = dtype == torch.float32
-                tol = TOL_FP32 if fp32 else TOL_BF16_OUT
-                ms = graph_ms(lambda: da.grouped_cross_attention(q, k, v,
-                                                                 mode))
-                plain = graph_ms(lambda: da.grouped_attention_reference(
-                    q, k, v, mode))
-                bound = {}
-                set_bound(bound, nbytes(q, k, v, got),
-                          4.0 * b * h * nq * l * 64, dtype)
-                lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-                log(f"  grouped attention {mode} {label} B={b} H={h} L={l} "
-                    f"Q={nq} {str(dtype)[6:]}: max|err| {err:.3g} (tol {tol}),"
-                    f" repeat bit-identical {repeat}, finite {finite}; kernel "
-                    f"{ms:.4f} ms plain {plain:.4f} ms (graph replay), bound "
-                    f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
-                    f"F.scaled_dot_product_attention {lib:.4f} ms")
-                expect(err <= tol and repeat and finite,
-                       f"grouped attention {mode} {label} Q={nq} {dtype} "
-                       "out of tolerance")
-                if fp32:
-                    entry["max_abs_err"] = max(entry["max_abs_err"], err)
-                elif label == "BASE" and nq == 3:
-                    entry.update(ms=ms, plain_ms=plain, library_ms=lib,
-                                 **bound)
+                def kernel(q, k, v):
+                    return da.grouped_cross_attention(q, k, v, mode)
+
+                def plain(q, k, v):
+                    return da.grouped_attention_reference(q, k, v, mode)
+
+                warm, cold = graph_ms(lambda: kernel(q, k, v)), cycle_ms(
+                    kernel, sets)
+                p_warm, p_cold = graph_ms(lambda: plain(q, k, v)), cycle_ms(
+                    plain, sets)
+                log(f"    bf16 {mode}: kernel warm {warm:.4f} ms cold "
+                    f"{cold:.4f} ms ({cold / bound['bound_ms']:.2f}x "
+                    f"the bound {bound['bound_ms']:.4f} ms, "
+                    f"{bound['bound_by']}); plain warm {p_warm:.4f} cold "
+                    f"{p_cold:.4f} ms; F.scaled_dot_product_attention warm "
+                    f"{lib:.4f} cold {lib_cold:.4f} ms ({layers} sets of "
+                    f"{nbytes(k, v) / 1e6:.1f} MB cycled)")
+                if label == "BASE" and nq == 3:
+                    entry.update(ms=cold, plain_ms=p_cold,
+                                 library_ms=lib_cold, **bound)
+            del sets
+        del q32, k32, v32
         torch.cuda.empty_cache()
+    report_ptxas("decode_attention", 11)
 
 
 def _decode_parity(label, setup):
@@ -1445,7 +1550,9 @@ def phase_kv_quant_parity(results):
 def phase_serve_decode_cross(results, card: str, profile: bool):
     """bf16 Prismer-BASE requests at batch 8 on the per-layer decode path
     with set_decode_cross("kernel"): 12 launches of kernel 11 in the
-    prefill and in every step; then the same requests with it off."""
+    prefill and in every step; then the same requests with it off. With
+    `profile`, one request's encode / beam-search split and profile under
+    each setting."""
     import torch
     from prismer_tpu_torch.models import roberta
     from prismer_tpu_torch.models.caption import build_generate_fn
@@ -1476,6 +1583,12 @@ def phase_serve_decode_cross(results, card: str, profile: bool):
                 log(f"  set_decode_cross(\"kernel\"): grouped_cross_attention "
                     f"{n} launches over {len(reqs)} requests of {steps} "
                     f"steps in all ({n / len(reqs):.0f} per request)")
+        if profile:   # the beam search's device time under each switch
+            for mode in ("kernel", "matmul"):
+                roberta.set_decode_cross(mode)
+                label = f"per-layer decode, decode cross {mode}, batch 8"
+                split_request(model, requests[0], label, card)
+                profile_request(generate, requests[0], label, card)
     finally:
         roberta.set_decode_cross("matmul")
         roberta.set_fused_decode("auto")
@@ -1781,7 +1894,8 @@ def profile_request(generate, req, label: str, card: str) -> None:
         f"({card})")
     for name, (t, c) in top:
         log(f"    {t:8.2f} ms {c:6d}x {name[:90]}")
-    for kind in ("flash_fwd", "flash_bwd"):   # the attention kernels, all
+    # the attention kernels, all instantiations
+    for kind in ("flash_fwd", "flash_bwd", "grouped_attn"):
         hits = [tc for name, tc in by_name.items() if kind in name]
         if hits:
             log(f"    {kind}*: {sum(t for t, _ in hits):.2f} ms over "

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks in inline PTX: TMA tensor loads,
-// mbarriers, and warpgroup matrix products (wgmma) with their shared-memory
-// descriptors. Used by the flash-attention forward and backward kernels
-// (flash_attention.cu, flash_attention_bwd.cu); written without CUTLASS /
-// CuTe so that every build error names a line of this repository.
+// mbarriers, ldmatrix, and warpgroup matrix products (wgmma) with their
+// shared-memory descriptors. Used by the flash-attention forward and
+// backward kernels (flash_attention.cu, flash_attention_bwd.cu) and the
+// grouped decode cross-attention (decode_attention.cu); written without
+// CUTLASS / CuTe so that every build error names a line of this repository.
 //
 // Shared-memory tiles are bf16, 64 columns (128 bytes) per row, in the
 // 128-byte swizzle that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes
@@ -64,31 +65,50 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A (B, H, L, D) bf16 view with element strides (sb, sh, sl, 1), loaded in
-// boxes of 64 columns x `rows` rows of one (batch, head), 128-byte swizzle.
-// Rows past L and columns past D read as zeros. The strides of extent-1
-// dimensions are never followed, so any multiple of 8 stands in for them.
-inline bool encode_bf16_rows(CUtensorMap* map, const void* base, int B, int H,
-                             int L, int D, int64_t sb, int64_t sh, int64_t sl,
-                             int rows) {
+// A (B, H, L, D) view of `elt`-byte elements with element strides (sb, sh,
+// sl, 1), loaded in boxes of 128 bytes of columns (64 bf16, 32 fp32) x
+// `rows` rows of one (batch, head), 128-byte swizzle. Rows past L and
+// columns past D read as zeros. The strides of extent-1 dimensions are never
+// followed, so any multiple of 16 bytes stands in for them.
+inline bool encode_rows(CUtensorMap* map, CUtensorMapDataType type, int elt,
+                        const void* base, int B, int H, int L, int D,
+                        int64_t sb, int64_t sh, int64_t sl, int rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  if (L == 1) sl = 8;
+  if (L == 1) sl = 16 / elt;
   if (H == 1) sh = sl * L;
   if (B == 1) sb = sh * H;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sl) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sl) * elt,
+                                 static_cast<cuuint64_t>(sh) * elt,
+                                 static_cast<cuuint64_t>(sb) * elt};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / elt),
+                             static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16 rows: boxes of 64 columns
+inline bool encode_bf16_rows(CUtensorMap* map, const void* base, int B, int H,
+                             int L, int D, int64_t sb, int64_t sh, int64_t sl,
+                             int rows) {
+  return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, B, H, L,
+                     D, sb, sh, sl, rows);
+}
+
+// fp32 rows: boxes of 32 columns, so a 64-column row takes two column
+// blocks of 128 bytes
+inline bool encode_f32_rows(CUtensorMap* map, const void* base, int B, int H,
+                            int L, int D, int64_t sb, int64_t sh, int64_t sl,
+                            int rows) {
+  return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, B, H, L,
+                     D, sb, sh, sl, rows);
 }
 
 // every base 16-byte aligned and every stride a multiple of `elems`
@@ -189,6 +209,30 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// device: ldmatrix (mma.sync fragments from shared memory)
+// ---------------------------------------------------------------------------
+
+// four 8 x 8 b16 matrices; lanes 8i .. 8i + 7 give the row addresses of
+// matrix i, which lands in r[i]: lane t holds row t / 4, columns 2 (t % 4)
+// and 2 (t % 4) + 1 (an mma.sync A or B fragment register)
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// the same, each matrix transposed: lane t holds rows 2 (t % 4) and
+// 2 (t % 4) + 1 of column t / 4 (a B fragment of a row-major k x n tile)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 // ---------------------------------------------------------------------------

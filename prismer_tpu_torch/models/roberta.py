@@ -174,10 +174,10 @@ class SelfAttentionCore(nn.Module):
         if kernel:
             from prismer_tpu_torch.ops.decode_attention import \
                 grouped_cross_attention
-            # the kernel reads contiguous rows: a no-op for the decode
-            # cache, one copy of the prompt's head-split K/V in the prefill
-            out = grouped_cross_attention(q.contiguous(), k.contiguous(),
-                                          v.contiguous(), "cross_t")
+            # K/V as they are: the decode cache, or the prefill's
+            # head-split views of the projected (B, L, D) K/V, which the
+            # kernel's TMA loads read through their strides
+            out = grouped_cross_attention(q.contiguous(), k, v, "cross_t")
         else:
             out = dot_product_attention(q, k, v)
         out = out.reshape(b, h, beams, p, dh).permute(0, 2, 1, 3, 4)

@@ -126,7 +126,8 @@ def kernels() -> ctypes.CDLL:
     lib.prismer_ln_proj.restype = _I
     lib.prismer_adaptor_fused.argtypes = [_P] * 8 + [_I] * 2 + [_F, _I, _P]
     lib.prismer_adaptor_fused.restype = _I
-    lib.prismer_grouped_attention.argtypes = [_P] * 4 + [_I] * 7 + [_F, _P]
+    lib.prismer_grouped_attention.argtypes = (
+        [_P] * 4 + [_I] * 5 + [_L] * 6 + [_I, _I, _F, _P])
     lib.prismer_grouped_attention.restype = _I
     return lib
 

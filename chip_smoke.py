@@ -460,6 +460,104 @@ def _fused_case(gen, b, beams, index, dims=BASE):
                 cross_v=randn(nlc, b, dims["l_enc"], d), index=index,
                 flat_beam=flat_beam.reshape(-1).to(torch.int32))
 
+# the projections of one fused step in launch order (csrc/fused_decode.cu
+# run_step): each cross layer's, then the output layer's
+FUSED_CROSS_MATS = ("qkv", "self_out", "cross_q", "cross_out", "ad_down",
+                    "ad_up", "mlp_in", "mlp_out")
+FUSED_OUT_MATS = ("qkv", "self_out", "mlp_in", "mlp_out")
+
+
+def fused_step_split(call, w_all, nlc: int, calls: int = 3):
+    """torch.profiler over `calls` fused steps: device ms per step by phase
+    (each projection by its matrix, in launch order; the LayerNorm, self-
+    and cross-attention kernels), kernels per step, the device span of a
+    step (overlapping kernels counted once: with programmatic dependent
+    launch a kernel's time starts when its first block is resident, its
+    wait included) and the projections' TB/s (the step's weight bytes over
+    their summed device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    ops = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
+                 key=lambda e: e.time_range.start)
+    mats = list(FUSED_CROSS_MATS) * nlc + list(FUSED_OUT_MATS)
+    phases, proj_i = {}, 0
+    for e in ops:
+        if "ln_kernel" in e.name:
+            kind = "ln"
+        elif "self_attn" in e.name:
+            kind = "self"
+        elif "cross_attn" in e.name:
+            kind = "cross"
+        else:
+            kind = "proj " + mats[proj_i % len(mats)]
+            proj_i += 1
+        phases[kind] = phases.get(kind, 0.0) + e.time_range.elapsed_us()
+    span, end = 0.0, -math.inf
+    for e in ops:
+        span += max(0.0, e.time_range.end - max(e.time_range.start, end))
+        end = max(end, e.time_range.end)
+    per = {k: v / 1e3 / calls for k, v in sorted(phases.items())}
+    proj = sum(v for k, v in per.items() if k.startswith("proj"))
+    return {"profiled_launches_per_step": len(ops) / calls,
+            "split_ms": per, "projections_ms": proj,
+            "summed_ms": sum(per.values()), "span_ms": span / 1e3 / calls,
+            "projection_tb_s": nbytes(w_all) / (proj * 1e-3) / 1e12}
+
+
+def time_fused_step(label, entry, x, index, fb, kw, nlc, plain_iters,
+                    split):
+    """The bf16 step with the reorder on `x`: CUDA-event ms (the host's
+    issue of every launch included) and graph-replay ms (the device alone),
+    the plain version's ms, the kernels the C entry launched per step, two
+    calls bit-identical (the split-K order is fixed), and with `split` the
+    profiler's device split. Stored under entry["step"][label]."""
+    import torch
+    from prismer_tpu_torch.ops import _build
+    from prismer_tpu_torch.ops import fused_decode as fd
+    outk, outv = torch.empty_like(x["self_k"]), torch.empty_like(x["self_v"])
+    args = (x["hidden0"], x["w_all"], x["b_all"], x["self_k"], x["self_v"],
+            x["key_mask"], x["cross_k"], x["cross_v"], index, fb, outk, outv)
+    k = dict(kw, cross_ks=x.get("cross_ks"), cross_vs=x.get("cross_vs"))
+
+    def call():
+        return fd.fused_decode_step(*args, **k)
+    first = [t.clone() for t in call()]
+    launches = _build.kernels().prismer_fused_decode_launches()
+    same = all(torch.equal(a, b) for a, b in zip(first, call()))
+    del first
+    rec = {"events_ms": cuda_ms(call, iters=10),
+           "graph_ms": graph_ms(call, iters=10),
+           "plain_ms": cuda_ms(lambda: fd.fused_decode_step_reference(
+               *args, **k), iters=plain_iters),
+           "launches_per_step": launches, "repeat_bit_identical": same}
+    if split:
+        rec.update(fused_step_split(call, x["w_all"], nlc))
+    entry.setdefault("step", {})[label] = rec
+    line = (f"    bf16 {label} with reorder: kernel {rec['events_ms']:.4f} ms "
+            f"events, {rec['graph_ms']:.4f} ms graph; plain "
+            f"{rec['plain_ms']:.4f} ms; {launches} launches per step; two "
+            f"calls bit-identical {same}")
+    if split:
+        line += (f"\n      split (profiler, ms per step): span "
+                 f"{rec['span_ms']:.4f}, summed {rec['summed_ms']:.4f}, "
+                 f"projections {rec['projections_ms']:.4f} "
+                 f"({rec['projection_tb_s']:.3f} TB/s); "
+                 + ", ".join(f"{name} {t:.4f}"
+                             for name, t in rec["split_ms"].items()))
+    log(line)
+    expect(same, f"fused_decode_step {label}: two calls differ")
+    return rec
+
 
 def check_fused_decode(results):
     import torch
@@ -531,20 +629,11 @@ def check_fused_decode(results):
                 if fp32:
                     entry["max_abs_err"] = max(entry["max_abs_err"], *errs)
                 if not fp32 and perm:
-                    outk = torch.empty_like(x["self_k"])
-                    outv = torch.empty_like(x["self_v"])
-                    ms = cuda_ms(lambda: fd.fused_decode_step(
-                        x["hidden0"], x["w_all"], x["b_all"], x["self_k"],
-                        x["self_v"], x["key_mask"], x["cross_k"],
-                        x["cross_v"], index, fb, outk, outv, **kw), iters=10)
-                    plain = cuda_ms(lambda: fd.fused_decode_step_reference(
-                        x["hidden0"], x["w_all"], x["b_all"], x["self_k"],
-                        x["self_v"], x["key_mask"], x["cross_k"],
-                        x["cross_v"], index, fb, outk, outv, **kw), iters=10)
-                    log(f"    bf16 N={3 * b} with reorder: kernel {ms:.4f} ms "
-                        f"plain {plain:.4f} ms")
+                    rec = time_fused_step(f"BASE N={3 * b}", entry, x, index,
+                                          fb, kw, BASE["nlc"], 10, b == 8)
                     if b == 8:
-                        entry["ms"], entry["plain_ms"] = ms, plain
+                        entry["ms"] = rec["events_ms"]
+                        entry["plain_ms"] = rec["plain_ms"]
                         n, d = x["hidden0"].shape
                         t_len, l_enc = BASE["t"], BASE["l_enc"]
                         nlc = BASE["nlc"]
@@ -1275,15 +1364,9 @@ def check_fused_decode_huge(results):
                 if fp32:
                     entry["max_abs_err"] = max(entry["max_abs_err"], *errs)
                 if not fp32 and perm:
-                    call = (x["hidden0"], x["w_all"], x["b_all"],
-                            x["self_k"], x["self_v"], x["key_mask"],
-                            x["cross_k"], x["cross_v"], index, fb,
-                            torch.empty_like(x["self_k"]),
-                            torch.empty_like(x["self_v"]))
-                    ms = cuda_ms(lambda: fd.fused_decode_step(*call, **k),
-                                 iters=10)
-                    plain = cuda_ms(lambda: fd.fused_decode_step_reference(
-                        *call, **k), iters=5)
+                    rec = time_fused_step("HUGE N=24", entry, x, index, fb,
+                                          kw, dims["nlc"], 5, True)
+                    ms, plain = rec["events_ms"], rec["plain_ms"]
                     n, d = x["hidden0"].shape
                     flops = 2.0 * n * x["w_all"].numel() + 4.0 * n * d * (
                         dims["t"] * (dims["nlc"] + 1)

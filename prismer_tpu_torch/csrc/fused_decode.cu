@@ -67,8 +67,10 @@
 
 #include <algorithm>
 #include <type_traits>
+#include <utility>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -94,6 +96,37 @@ constexpr int kMaxBeams = 8;
 constexpr int kMaxLnDim = 1024;        // LayerNorm rows live in registers
 
 enum Act { kActNone = 0, kActSqRelu = 1, kActGelu = 2 };
+
+using hopper::grid_dep_launch;
+using hopper::grid_dep_wait;
+
+int g_launches = 0;   // kernels the last step launched
+
+// Every kernel of the step goes through here: programmatic stream
+// serialization lets it launch while the kernel before it still runs (it
+// waits in grid_dep_wait), and `cluster` > 1 groups its blocks along x into
+// thread-block clusters of that size.
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), dim3 grid, int threads,
+                   size_t smem, int cluster, cudaStream_t st,
+                   Args&&... args) {
+  cudaLaunchAttribute attrs[2] = {};
+  attrs[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[0].val.programmaticStreamSerializationAllowed = 1;
+  attrs[1].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].val.clusterDim.x = cluster;
+  attrs[1].val.clusterDim.y = 1;
+  attrs[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attrs;
+  cfg.numAttrs = cluster > 1 ? 2 : 1;
+  ++g_launches;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+}
 
 // Raise a kernel's dynamic shared memory limit once per size it needs.
 template <typename K>
@@ -204,6 +237,8 @@ dense_kernel(const DenseParams<T> p) {
     prismer::prefetch_l2(p.w + static_cast<size_t>(col) * p.K,
                          p.K * static_cast<int>(sizeof(T)), lane);
   }
+  grid_dep_wait();
+  grid_dep_launch();
   for (int k0 = 0; k0 < p.K; k0 += p.kc) {
     const int len = min(p.kc, p.K - k0);
     if (k0 > 0) __syncthreads();
@@ -252,6 +287,8 @@ dense_mma_kernel(const DenseParams<__nv_bfloat16> p) {
                            p.K * static_cast<int>(sizeof(bf16)), lane);
     }
   }
+  grid_dep_wait();
+  grid_dep_launch();
   float acc[MT][1][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
@@ -298,8 +335,7 @@ cudaError_t launch_dense_nr(DenseParams<T> p, cudaStream_t st) {
   if (err != cudaSuccess) return err;
   const dim3 grid((p.M + kDenseWarps - 1) / kDenseWarps,
                   (p.N + NR - 1) / NR);
-  dense_kernel<T, NR><<<grid, kDenseThreads, smem, st>>>(p);
-  return cudaGetLastError();
+  return launch(dense_kernel<T, NR>, grid, kDenseThreads, smem, 1, st, p);
 }
 
 template <typename T>
@@ -323,8 +359,7 @@ cudaError_t launch_dense_mma(DenseParams<__nv_bfloat16> p, cudaStream_t st) {
   const cudaError_t err = allow_smem(dense_mma_kernel<MT>, smem, &granted);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.M + 7) / 8, (p.N + R - 1) / R);
-  dense_mma_kernel<MT><<<grid, kDenseThreads, smem, st>>>(p);
-  return cudaGetLastError();
+  return launch(dense_mma_kernel<MT>, grid, kDenseThreads, smem, 1, st, p);
 }
 
 // fp32 (the card-side parity runs): FMA tiles; bf16: tensor-core tiles
@@ -369,6 +404,8 @@ self_attn_kernel(const SelfParams<T> p) {
   float* vs = ks + p.Tn * ld;     // (T, Dh + 1)
   float* qs = vs + p.Tn * ld;     // (Dh)
   float* ps = qs + p.Dh;          // (T)
+  grid_dep_wait();
+  grid_dep_launch();
   const int h = blockIdx.x;
   const int n = blockIdx.y;
   const int D = p.D;
@@ -520,6 +557,8 @@ cross_attn_kernel(const CrossParams<T, KV> p) {
   const int grp = lane / lpr;        // which row of the warp's load
   const size_t kv0 = static_cast<size_t>(b) * L * D + h * Dh + sub * V;
   const int stride = kCrossWarps * rpw;
+  grid_dep_wait();
+  grid_dep_launch();
 
   // the lane's V query values of each beam; with int8 K the K scale folds
   // into them in fp32, rounded to the compute dtype
@@ -671,9 +710,8 @@ cudaError_t launch_cross_beams(const CrossParams<T, KV>& p, cudaStream_t st) {
   const cudaError_t err =
       allow_smem(cross_attn_kernel<T, KV, BEAMS>, smem, &granted);
   if (err != cudaSuccess) return err;
-  cross_attn_kernel<T, KV, BEAMS>
-      <<<dim3(p.H, p.B), kCrossThreads, smem, st>>>(p);
-  return cudaGetLastError();
+  return launch(cross_attn_kernel<T, KV, BEAMS>, dim3(p.H, p.B),
+                kCrossThreads, smem, 1, st, p);
 }
 
 template <typename T, typename KV>
@@ -722,6 +760,8 @@ template <typename T>
 __global__ void __launch_bounds__(256)
 ln_kernel(const T* o, const T* res, const float* s, const float* b, T* out,
           int N, int D, float eps) {
+  grid_dep_wait();
+  grid_dep_launch();
   const int n = blockIdx.x * 8 + threadIdx.x / 32;
   if (n >= N) return;
   const size_t r = static_cast<size_t>(n) * D;
@@ -768,6 +808,7 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
   const size_t slab = static_cast<size_t>(a.T) * nd;       // one layer cache
   const size_t dd = static_cast<size_t>(D) * D;
   const size_t fd = static_cast<size_t>(F) * D;
+  g_launches = 0;
 
   T* qkv = static_cast<T*>(a.work);        // (N, 3D); cross-q reuses it
   T* att = qkv + 3 * nd;                   // (N, D)
@@ -803,9 +844,8 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
   auto dense_ln = [&](const T* ln_o, const T* ln_res, const float* ln_s,
                       T* x, const T* w, const float* bias, T* out, int M,
                       int act_kind) {
-    ln_kernel<T><<<(N + 7) / 8, 256, 0, st>>>(ln_o, ln_res, ln_s, ln_s + D,
-                                              x, N, D, a.eps);
-    RETURN_IF_ERR(cudaGetLastError());
+    RETURN_IF_ERR(launch(ln_kernel<T>, dim3((N + 7) / 8), 256, 0, 1, st,
+                         ln_o, ln_res, ln_s, ln_s + D, x, N, D, a.eps));
     return dense(x, w, bias, out, D, M, act_kind);
   };
 
@@ -841,8 +881,8 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
     sp.Tn = a.T;
     sp.index = a.index;
     sp.scale = a.scale;
-    self_attn_kernel<T><<<dim3(a.H, N), kSelfThreads, self_smem, st>>>(sp);
-    RETURN_IF_ERR(cudaGetLastError());
+    RETURN_IF_ERR(launch(self_attn_kernel<T>, dim3(a.H, N), kSelfThreads,
+                         self_smem, 1, st, sp));
     RETURN_IF_ERR(dense(att, w + 3 * dd, bb + 3 * D, o, D, D, kActNone));
     const float* ln1 = bb + 4 * D;
     if (cross) {
@@ -887,10 +927,9 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
       bb += 9 * D + F;
     }
   }
-  ln_kernel<T><<<(N + 7) / 8, 256, 0, st>>>(
-      o, res, prev_ln, prev_ln + D, static_cast<T*>(a.hidden_out), N, D,
-      a.eps);
-  return cudaGetLastError();
+  return launch(ln_kernel<T>, dim3((N + 7) / 8), 256, 0, 1, st, o, res,
+                prev_ln, prev_ln + D, static_cast<T*>(a.hidden_out), N, D,
+                a.eps);
 }
 
 }  // namespace
@@ -933,3 +972,6 @@ extern "C" int prismer_fused_decode_step(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? run_step<float>(a, st) : run_step<__nv_bfloat16>(a, st);
 }
+
+// The kernels the last step launched.
+extern "C" int prismer_fused_decode_launches() { return g_launches; }

@@ -137,6 +137,23 @@ cudaError_t grant_smem(K kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
+// device: programmatic dependent launch
+// ---------------------------------------------------------------------------
+
+// wait until every grid this one was launched after (with the launch
+// attribute cudaLaunchAttributeProgrammaticStreamSerialization) has
+// completed and its writes are visible; a no-op without the attribute
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// let the next grid of the stream launch once every block of this one has
+// issued this (or exited); it then waits in grid_dep_wait
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
 // device: mbarriers and TMA
 // ---------------------------------------------------------------------------
 

@@ -106,6 +106,8 @@ def kernels() -> ctypes.CDLL:
     lib.prismer_fused_decode_step.argtypes = (
         [_P] * 17 + [_I] * 11 + [_F, _F, _P])
     lib.prismer_fused_decode_step.restype = _I
+    lib.prismer_fused_decode_launches.argtypes = []
+    lib.prismer_fused_decode_launches.restype = _I
     lib.prismer_lm_topk.argtypes = [_P] * 8 + [_I] * 9 + [_P]
     lib.prismer_lm_topk.restype = _I
     for name, outs in (("prismer_flash_attention_bwd_dq", 1),

@@ -556,6 +556,9 @@ def time_fused_step(label, entry, x, index, fb, kw, nlc, plain_iters,
                              for name, t in rec["split_ms"].items()))
     log(line)
     expect(same, f"fused_decode_step {label}: two calls differ")
+    expect(launches == fd.step_launches(nlc), f"fused_decode_step {label}: "
+           f"{launches} launches per step, the plan says "
+           f"{fd.step_launches(nlc)}")
     return rec
 
 

@@ -140,51 +140,73 @@ cudaError_t allow_smem(K kernel, size_t bytes, size_t* granted) {
   return err;
 }
 
-// dst = LN(o + res) over one row of D <= kMaxLnDim, by one warp. The row
-// is read once, 16 bytes per lane per load with every load in flight
-// together, and kept in registers for the two-pass statistics.
+// x = o + res over one row of D <= kMaxLnDim, read by one warp (16 bytes
+// per lane per load, every load in flight together) and kept in registers,
+// with the two-pass statistics of the spec: the row's mean and
+// 1 / sqrt(var + eps). The final LayerNorm (ln_row) and every LayerNorm
+// folded into a projection take them from here, so a folded LN'd value is
+// the one ln_row writes.
+template <typename T>
+struct LnRow {
+  static constexpr int V = Vec<T>::kN;
+  static constexpr int NV = kMaxLnDim / (32 * V);
+  float x[NV][V];
+  float mean, rstd;
+
+  __device__ __forceinline__ void load(const T* o, const T* res, int D,
+                                       float eps, int lane) {
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int k = (lane + 32 * i) * V;
+      if (k < D) {
+        float r[V];
+        Vec<T>::load(o + k, x[i]);
+        Vec<T>::load(res + k, r);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          x[i][j] += r[j];
+          sum += x[i][j];
+        }
+      }
+    }
+    mean = warp_sum(sum) / D;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if ((lane + 32 * i) * V < D) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float d = x[i][j] - mean;
+          sq += d * d;
+        }
+      }
+    }
+    rstd = rsqrtf(warp_sum(sq) / D + eps);
+  }
+};
+
+// (x - mean) * rstd * s + b, each step rounded as written (no contraction
+// but the last fma), wherever a LayerNorm is applied
+__device__ __forceinline__ float ln_apply(float x, float mean, float rstd,
+                                          float s, float b) {
+  return __fmaf_rn(__fmul_rn(__fsub_rn(x, mean), rstd), s, b);
+}
+
+// dst = LN(o + res) over one row, by one warp
 template <typename T>
 __device__ void ln_row(const T* o, const T* res, const float* s,
                        const float* b, int D, float eps, int lane, T* dst) {
-  constexpr int V = Vec<T>::kN;
-  constexpr int NV = kMaxLnDim / (32 * V);
-  float x[NV][V];
-  float sum = 0.f;
+  LnRow<T> r;
+  r.load(o, res, D, eps, lane);
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int k = (lane + 32 * i) * V;
-    if (k < D) {
-      float r[V];
-      Vec<T>::load(o + k, x[i]);
-      Vec<T>::load(res + k, r);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        x[i][j] += r[j];
-        sum += x[i][j];
-      }
-    }
-  }
-  const float mean = warp_sum(sum) / D;
-  float sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    if ((lane + 32 * i) * V < D) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float d = x[i][j] - mean;
-        sq += d * d;
-      }
-    }
-  }
-  const float rstd = rsqrtf(warp_sum(sq) / D + eps);
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int k = (lane + 32 * i) * V;
+  for (int i = 0; i < LnRow<T>::NV; ++i) {
+    const int k = (lane + 32 * i) * LnRow<T>::V;
     if (k < D) {
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const float y = (x[i][j] - mean) * rstd * s[k + j] + b[k + j];
-        dst[k + j] = from_f<T>(y);
+      for (int j = 0; j < LnRow<T>::V; ++j) {
+        dst[k + j] = from_f<T>(ln_apply(r.x[i][j], r.mean, r.rstd, s[k + j],
+                                        b[k + j]));
       }
     }
   }
@@ -194,14 +216,75 @@ __device__ void ln_row(const T* o, const T* res, const float* s,
 // projection: out = act(round(x @ W^T) + b), x (N, K), W (M, K)
 // ---------------------------------------------------------------------------
 
+// With ln_s given, the input is x = LN(ln_o + ln_res) (K = D), computed by
+// the projection itself (the LayerNorm folded into the projection that
+// reads it), and the blocks of column tile 0 also write it to res_out, the
+// residual the later kernels read.
 template <typename T>
 struct DenseParams {
-  const T* x;          // (N, K)
+  const T* x;          // (N, K), or null with ln_s
   const T* w;          // (M, K)
   const float* bias;   // (M,)
   T* out;              // (N, M)
+  const T* ln_o;       // (N, K)
+  const T* ln_res;     // (N, K)
+  const float* ln_s;   // LN scale (K), then bias (K); null: no LN
+  T* res_out;          // (N, K)
+  float eps;
   int N, K, M, kc, act;
 };
+
+// the (mean, rstd) of rows [row0, row0 + rows) of LN(ln_o + ln_res), one
+// warp per row, into stats
+template <typename T>
+__device__ void ln_stats_rows(const DenseParams<T>& p, int row0, int rows,
+                              float2* stats, int warp, int warps, int lane) {
+  for (int n = warp; n < rows; n += warps) {
+    const size_t off = static_cast<size_t>(row0 + n) * p.K;
+    LnRow<T> r;
+    r.load(p.ln_o + off, p.ln_res + off, p.K, p.eps, lane);
+    if (lane == 0) stats[n] = make_float2(r.mean, r.rstd);
+  }
+}
+
+// 16 bytes (Vec<T>::kN values) of LN(ln_o + ln_res), row n, columns k ..,
+// rounded to T; with `res` also written to res_out
+template <typename T>
+__device__ __forceinline__ uint4 ln_vec(const DenseParams<T>& p, int n,
+                                        int k, float2 st, bool res) {
+  constexpr int V = Vec<T>::kN;
+  const size_t off = static_cast<size_t>(n) * p.K + k;
+  float o[V], r[V];
+  Vec<T>::load(p.ln_o + off, o);
+  Vec<T>::load(p.ln_res + off, r);
+  uint4 v;
+  T* y = reinterpret_cast<T*>(&v);
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    y[j] = from_f<T>(ln_apply(o[j] + r[j], st.x, st.y, p.ln_s[k + j],
+                              p.ln_s[p.K + k + j]));
+  }
+  if (res) *reinterpret_cast<uint4*>(p.res_out + off) = v;
+  return v;
+}
+
+// load_rows for an LN'd input: rows [row0, row0 + NR) x columns [k0, k0 +
+// len) of LN(ln_o + ln_res) into xs (row stride ldx), rows past `rows` as
+// zeros
+template <typename T, int NR>
+__device__ void load_rows_ln(const DenseParams<T>& p, int row0, int rows,
+                             int k0, int len, const float2* stats, bool res,
+                             T* xs, int ldx) {
+  constexpr int V = Vec<T>::kN;
+  const int segs = len / V;
+  for (int e = threadIdx.x; e < NR * segs; e += blockDim.x) {
+    const int n = e / segs;
+    const int c = (e - n * segs) * V;
+    const uint4 v = n < rows ? ln_vec(p, row0 + n, k0 + c, stats[n], res)
+                             : make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(xs + n * ldx + c) = v;
+  }
+}
 
 // the projection's epilogue: round the fp32 sum to T, add the bias cast to
 // T, round, then the activation in fp32, rounded
@@ -222,6 +305,7 @@ __global__ void __launch_bounds__(kDenseThreads)
 dense_kernel(const DenseParams<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);  // (NR, kc)
+  float2* stats = reinterpret_cast<float2*>(xs + NR * p.kc);   // (NR)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int row0 = blockIdx.y * NR;
@@ -239,10 +323,20 @@ dense_kernel(const DenseParams<T> p) {
   }
   grid_dep_wait();
   grid_dep_launch();
+  const bool ln = p.ln_s != nullptr;
+  if (ln) {
+    ln_stats_rows(p, row0, rows, stats, warp, kDenseWarps, lane);
+    __syncthreads();
+  }
   for (int k0 = 0; k0 < p.K; k0 += p.kc) {
     const int len = min(p.kc, p.K - k0);
     if (k0 > 0) __syncthreads();
-    prismer::load_rows<T, NR>(p.x, p.K, row0, rows, k0, len, xs, p.kc);
+    if (ln) {
+      load_rows_ln<T, NR>(p, row0, rows, k0, len, stats, blockIdx.x == 0, xs,
+                          p.kc);
+    } else {
+      prismer::load_rows<T, NR>(p.x, p.K, row0, rows, k0, len, xs, p.kc);
+    }
     __syncthreads();
     if (col < p.M) {
       warp_rows_dot<T, NR>(p.w + static_cast<size_t>(col) * p.K + k0, xs,
@@ -275,6 +369,7 @@ dense_mma_kernel(const DenseParams<__nv_bfloat16> p) {
   const int ldx = prismer::mma_ldx(p.kc);
   bf16* xs = reinterpret_cast<bf16*>(smem_raw);             // (R, ldx)
   float* red = reinterpret_cast<float*>(xs + R * ldx);       // (warps, R, 8)
+  float2* stats = reinterpret_cast<float2*>(red + kDenseWarps * R * 8);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int row0 = blockIdx.y * R;
@@ -289,6 +384,11 @@ dense_mma_kernel(const DenseParams<__nv_bfloat16> p) {
   }
   grid_dep_wait();
   grid_dep_launch();
+  const bool ln = p.ln_s != nullptr;
+  if (ln) {
+    ln_stats_rows(p, row0, rows, stats, warp, kDenseWarps, lane);
+    __syncthreads();
+  }
   float acc[MT][1][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
@@ -297,7 +397,12 @@ dense_mma_kernel(const DenseParams<__nv_bfloat16> p) {
   for (int k0 = 0; k0 < p.K; k0 += p.kc) {
     const int len = min(p.kc, p.K - k0);
     if (k0 > 0) __syncthreads();
-    prismer::load_rows<bf16, R>(p.x, p.K, row0, rows, k0, len, xs, ldx);
+    if (ln) {
+      load_rows_ln<bf16, R>(p, row0, rows, k0, len, stats, blockIdx.x == 0,
+                            xs, ldx);
+    } else {
+      prismer::load_rows<bf16, R>(p.x, p.K, row0, rows, k0, len, xs, ldx);
+    }
     __syncthreads();
     prismer::mma_rows<MT, 1, kDenseWarps, 4>(xs, ldx, p.w, p.K, k0, len, col0,
                                           p.M, warp, lane, acc);
@@ -330,7 +435,8 @@ cudaError_t launch_dense_nr(DenseParams<T> p, cudaStream_t st) {
   static size_t granted = 48 * 1024;
   constexpr int esz = sizeof(T);
   p.kc = std::min(p.K, std::max(8, kChunkBytes / (NR * esz) / 8 * 8));
-  const size_t smem = static_cast<size_t>(NR) * p.kc * esz;
+  const size_t smem = static_cast<size_t>(NR) * p.kc * esz +
+                      NR * sizeof(float2);
   cudaError_t err = allow_smem(dense_kernel<T, NR>, smem, &granted);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.M + kDenseWarps - 1) / kDenseWarps,
@@ -355,7 +461,8 @@ cudaError_t launch_dense_mma(DenseParams<__nv_bfloat16> p, cudaStream_t st) {
   p.kc = std::min(p.K, kMmaChunk);
   const size_t smem =
       static_cast<size_t>(R) * prismer::mma_ldx(p.kc) * 2 +
-      static_cast<size_t>(kDenseWarps) * R * 8 * sizeof(float);
+      static_cast<size_t>(kDenseWarps) * R * 8 * sizeof(float) +
+      R * sizeof(float2);
   const cudaError_t err = allow_smem(dense_mma_kernel<MT>, smem, &granted);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.M + 7) / 8, (p.N + R - 1) / R);
@@ -827,26 +934,36 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
   const int beams = N / a.B;
   RETURN_IF_ERR(allow_smem(self_attn_kernel<T>, self_smem, &self_granted));
 
-  auto dense = [&](const T* x, const T* w, const float* bias, T* out, int K,
-                   int M, int act_kind) {
+  auto params = [&](const T* w, const float* bias, T* out, int K, int M,
+                    int act_kind) {
     DenseParams<T> p{};
-    p.x = x;
     p.w = w;
     p.bias = bias;
     p.out = out;
+    p.eps = a.eps;
     p.N = N;
     p.K = K;
     p.M = M;
     p.act = act_kind;
+    return p;
+  };
+  auto dense = [&](const T* x, const T* w, const float* bias, T* out, int K,
+                   int M, int act_kind) {
+    DenseParams<T> p = params(w, bias, out, K, M, act_kind);
+    p.x = x;
     return launch_dense<T>(p, st);
   };
-  // x = LN(o + res), then out = act(x @ W^T + b)
+  // x = LN(o + res) (written to x), and out = act(x @ W^T + b), by one
+  // launch
   auto dense_ln = [&](const T* ln_o, const T* ln_res, const float* ln_s,
                       T* x, const T* w, const float* bias, T* out, int M,
                       int act_kind) {
-    RETURN_IF_ERR(launch(ln_kernel<T>, dim3((N + 7) / 8), 256, 0, 1, st,
-                         ln_o, ln_res, ln_s, ln_s + D, x, N, D, a.eps));
-    return dense(x, w, bias, out, D, M, act_kind);
+    DenseParams<T> p = params(w, bias, out, D, M, act_kind);
+    p.ln_o = ln_o;
+    p.ln_res = ln_res;
+    p.ln_s = ln_s;
+    p.res_out = x;
+    return launch_dense<T>(p, st);
   };
 
   const T* w = static_cast<const T*>(a.w_all);

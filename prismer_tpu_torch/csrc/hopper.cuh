@@ -179,6 +179,12 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
                : "memory");
 }
 
+// make this thread's shared-memory stores visible to the async proxy
+// (a wgmma operand written with plain stores); a barrier follows
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // make initialised barriers visible to the async (TMA) proxy
 __device__ __forceinline__ void mbar_init_fence() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -320,6 +326,49 @@ __device__ __forceinline__ void acc_to_a(const float* acc, int t,
   a[3] = pack_bf16(acc[8 * t + 6], acc[8 * t + 7]);
 }
 
+// d (64 x 8) (+)= A (64 x 16, shared, K-major) * B (16 x 8, shared,
+// K-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n8(float* d, uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 16) (+)= A (64 x 16, shared, K-major) * B (16 x 16, shared,
+// K-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 24) (+)= A (64 x 16, shared, K-major) * B (16 x 24, shared,
+// K-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n24(float* d, uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11"
+      "}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d (64 x 32) (+)= A (64 x 16, shared, K-major) * B (16 x 32, shared,
 // K-major); scale_d 0 overwrites d
 __device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b,
@@ -334,6 +383,26 @@ __device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b,
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 48) (+)= A (64 x 16, shared, K-major) * B (16 x 48, shared,
+// K-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n48(float* d, uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
@@ -416,9 +485,19 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
                                          int scale_d) {
-  static_assert(N == 32 || N == 64, "wgmma_ss: N is 32 or 64");
-  if constexpr (N == 32) {
+  static_assert(N == 8 || N == 16 || N == 24 || N == 32 || N == 48 ||
+                    N == 64,
+                "wgmma_ss: N is 8, 16, 24, 32, 48 or 64");
+  if constexpr (N == 8) {
+    wgmma_ss_n8(d, a, b, scale_d);
+  } else if constexpr (N == 16) {
+    wgmma_ss_n16(d, a, b, scale_d);
+  } else if constexpr (N == 24) {
+    wgmma_ss_n24(d, a, b, scale_d);
+  } else if constexpr (N == 32) {
     wgmma_ss_n32(d, a, b, scale_d);
+  } else if constexpr (N == 48) {
+    wgmma_ss_n48(d, a, b, scale_d);
   } else {
     wgmma_ss_n64(d, a, b, scale_d);
   }

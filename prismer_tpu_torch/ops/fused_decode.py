@@ -40,7 +40,7 @@ operands; exact-erf GELU and squared ReLU in fp32, rounded.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +71,72 @@ def layer_layout(d: int, f: int, with_cross: bool):
         b[name] = (boff, size)
         boff += size
     return w, b, off, boff
+
+
+# the bf16 projection's launch shape (csrc/fused_decode.cu `dense_plan`):
+# 64 output columns a block, 64-wide k tiles, clusters of at most 8 blocks
+# splitting K until a launch has 128 blocks, at most 8 weight boxes in
+# flight a block, and two blocks an SM (one of the running launch and one
+# of the next, resident early under programmatic dependent launch)
+PROJ_TILE = 64
+PROJ_MAX_STAGES = 8
+PROJ_MAX_SPLIT = 8
+PROJ_MIN_BLOCKS = 128
+PROJ_MAX_ROWS = 64
+PROJ_SMEM_BUDGET = 113 * 1024
+SM_SMEM = 228 * 1024      # an SM's shared memory, 1 KB of it per block kept
+
+
+class DensePlan(NamedTuple):
+    col_tiles: int   # 64-column tiles of the M outputs
+    rows: int        # rows per row tile: N rounded up to 8..32, 48 or 64
+    row_tiles: int   # row tiles of N
+    k_tiles: int     # 64-wide tiles of K
+    split: int       # blocks per cluster, each a K slice
+    slice: int       # k tiles of the largest slice
+    stages: int      # weight boxes in flight a block
+    smem_bytes: int  # dynamic shared memory a block
+
+
+def _proj_smem(rows: int, slice_: int, stages: int, split: int) -> int:
+    """Ring, input slice, partial tile (split > 1), LN statistics, stage
+    barriers, 1 KB of alignment slack."""
+    return (stages * PROJ_TILE * PROJ_TILE * 2 + slice_ * rows * 128
+            + (PROJ_TILE * rows * 4 if split > 1 else 0) + rows * 8
+            + stages * 8 + 1024)
+
+
+def dense_plan(m: int, k: int, n: int) -> DensePlan:
+    """The launch shape of the bf16 projection out (n, m) = x (n, k) W^T,
+    as the C entry computes it (`dense_plan`; keep the two in step). Rank
+    r of a cluster takes k tiles [r * k_tiles // split, (r + 1) * k_tiles
+    // split)."""
+    col_tiles = -(-m // PROJ_TILE)
+    r8 = -(-min(n, PROJ_MAX_ROWS) // 8) * 8
+    rows = r8 if r8 <= 32 else (48 if r8 <= 48 else 64)
+    row_tiles = -(-n // rows)
+    k_tiles = -(-k // PROJ_TILE)
+    split = 1
+    while (split < PROJ_MAX_SPLIT and 2 * split <= k_tiles
+           and col_tiles * row_tiles * split < PROJ_MIN_BLOCKS):
+        split *= 2
+    slice_ = -(-k_tiles // split)
+    stages = min(slice_, PROJ_MAX_STAGES)
+    while stages > 2 and _proj_smem(rows, slice_, stages,
+                                    split) > PROJ_SMEM_BUDGET:
+        stages -= 1
+    return DensePlan(col_tiles, rows, row_tiles, k_tiles, split, slice_,
+                     stages, _proj_smem(rows, slice_, stages, split))
+
+
+def step_launches(nlc: int) -> int:
+    """Kernels one step launches (csrc/fused_decode.cu `run_step`): 10 per
+    cross layer (qkv, self-attention, self-out, cross-q, cross-attention,
+    cross-out, adaptor down and up, MLP in and out; each LayerNorm but the
+    last runs inside the projection that reads it), 5 for the output layer
+    (qkv, self-attention, self-out, MLP in and out) and the final
+    LayerNorm."""
+    return 10 * nlc + 5 + 1
 
 
 def packed_sizes(d: int, f: int, nlc: int) -> Tuple[int, int]:

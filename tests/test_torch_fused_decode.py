@@ -32,6 +32,7 @@ from prismer_tpu_torch.models.caption import \
 from prismer_tpu_torch.models.prismer import Prismer as PortPrismer
 from prismer_tpu_torch.models.prismer import \
     prepare_serving_variables as port_prepare_serving
+from prismer_tpu_torch.ops import fused_decode as fd
 from prismer_tpu_torch.ops.fused_decode import (NEG_INF, fused_decode_step,
                                                 layer_views,
                                                 pack_decode_weights)
@@ -190,6 +191,57 @@ def test_fused_step_rejects_bad_buffers():
                           heads=4)
     with pytest.raises(ValueError):
         fused_decode_step(h0, w_all, b_all, sk, sv, km, ck, ck, T, heads=4)
+
+
+@pytest.mark.parametrize("model", ["prismer_base", "prismer_large",
+                                   "prismer_huge"])
+def test_dense_plan_fits_every_registry_decoder(model):
+    """The bf16 projection's launch shape (`dense_plan`, the C entry's
+    plan mirrored) for every decoder matrix of the registry models at the
+    served row counts: clusters of at most 8 blocks whose K slices cover K
+    exactly once, shared memory within the budget that keeps one block of
+    the next launch resident beside one of the running launch, and the
+    step's launch count."""
+    cfg = port_config.build_prismer_config(
+        {"experts": port_config.CAPTION_EXPERTS, "image_resolution": 480,
+         "prismer_model": model}).decoder
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    assert (d, f) == {"prismer_base": (768, 3072)}.get(model, (1024, 4096))
+    for m, k in ((3 * d, d), (d, d), (f, d), (d, f)):
+        for n in (3, 15, 24, 48):
+            plan = fd.dense_plan(m, k, n)
+            assert 1 <= plan.split <= fd.PROJ_MAX_SPLIT
+            assert plan.col_tiles * fd.PROJ_TILE >= m
+            assert plan.rows >= min(n, 64) and plan.rows % 8 == 0
+            assert plan.rows * plan.row_tiles >= n
+            slices = [range(r * plan.k_tiles // plan.split,
+                            (r + 1) * plan.k_tiles // plan.split)
+                      for r in range(plan.split)]
+            assert [t for sl in slices for t in sl] == list(
+                range(plan.k_tiles))
+            assert all(0 < len(sl) <= plan.slice for sl in slices)
+            assert plan.k_tiles * fd.PROJ_TILE >= k
+            assert 2 <= plan.stages <= min(plan.slice, fd.PROJ_MAX_STAGES) \
+                or plan.stages == plan.slice == 1
+            assert plan.smem_bytes <= fd.PROJ_SMEM_BUDGET
+            assert 2 * (plan.smem_bytes + 1024) <= fd.SM_SMEM
+    assert fd.step_launches(cfg.num_hidden_layers) == {
+        "prismer_base": 126}.get(model, 246)
+    if model == "prismer_base":
+        # N 24: the D x D projections take 12 column tiles in clusters of
+        # 8 (1 or 2 of the 12 k tiles a block, both in flight), the qkv 36
+        # in clusters of 4, W1 48, W2 12 in clusters of 8 (6 k tiles a
+        # block, all in flight); each block's ring, input slice (24 rows),
+        # partial tile, LN statistics, barriers and alignment slack
+        assert fd.dense_plan(d, d, 24) == (12, 24, 1, 12, 8, 2, 2, 29904)
+        assert fd.dense_plan(3 * d, d, 24) == (36, 24, 1, 12, 4, 3, 3,
+                                               41176)
+        assert fd.dense_plan(f, d, 24) == (48, 24, 1, 12, 4, 3, 3, 41176)
+        assert fd.dense_plan(d, f, 24) == (12, 24, 1, 48, 8, 6, 6, 74992)
+        assert fd.dense_plan(d, d, 24).smem_bytes == (
+            2 * 8192 + 2 * 24 * 128 + 64 * 24 * 4 + 24 * 8 + 2 * 8 + 1024)
+        # past 64 rows, row tiles of 64
+        assert fd.dense_plan(d, d, 96)[1:3] == (64, 2)
 
 
 def _port_run_steps(port, enc, ids_tiled, mask_tiled, prompt_mask,

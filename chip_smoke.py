@@ -471,10 +471,12 @@ def fused_step_split(call, w_all, nlc: int, calls: int = 3):
     """torch.profiler over `calls` fused steps: device ms per step by phase
     (each projection by its matrix, in launch order; the LayerNorm, self-
     and cross-attention kernels), kernels per step, the device span of a
-    step (overlapping kernels counted once: with programmatic dependent
-    launch a kernel's time starts when its first block is resident, its
-    wait included) and the projections' TB/s (the step's weight bytes over
-    their summed device time)."""
+    step and the projections' TB/s (the step's weight bytes over their
+    time). With programmatic dependent launch a kernel's time starts when
+    its first block is resident, its wait on the kernel before included, so
+    a kernel is charged only the time by which it extends the span past the
+    kernels before it (the phases add up to the span); `summed_ms` is the
+    plain sum of the kernels' times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
@@ -490,7 +492,7 @@ def fused_step_split(call, w_all, nlc: int, calls: int = 3):
                   and not getattr(e, "is_user_annotation", False)),
                  key=lambda e: e.time_range.start)
     mats = list(FUSED_CROSS_MATS) * nlc + list(FUSED_OUT_MATS)
-    phases, proj_i = {}, 0
+    phases, proj_i, end = {}, 0, -math.inf
     for e in ops:
         if "ln_kernel" in e.name:
             kind = "ln"
@@ -501,16 +503,15 @@ def fused_step_split(call, w_all, nlc: int, calls: int = 3):
         else:
             kind = "proj " + mats[proj_i % len(mats)]
             proj_i += 1
-        phases[kind] = phases.get(kind, 0.0) + e.time_range.elapsed_us()
-    span, end = 0.0, -math.inf
-    for e in ops:
-        span += max(0.0, e.time_range.end - max(e.time_range.start, end))
+        extends = max(0.0, e.time_range.end - max(e.time_range.start, end))
         end = max(end, e.time_range.end)
+        phases[kind] = phases.get(kind, 0.0) + extends
     per = {k: v / 1e3 / calls for k, v in sorted(phases.items())}
     proj = sum(v for k, v in per.items() if k.startswith("proj"))
+    summed = sum(e.time_range.elapsed_us() for e in ops) / 1e3 / calls
     return {"profiled_launches_per_step": len(ops) / calls,
-            "split_ms": per, "projections_ms": proj,
-            "summed_ms": sum(per.values()), "span_ms": span / 1e3 / calls,
+            "split_ms": per, "projections_ms": proj, "summed_ms": summed,
+            "span_ms": sum(per.values()),
             "projection_tb_s": nbytes(w_all) / (proj * 1e-3) / 1e12}
 
 
@@ -872,7 +873,13 @@ def sdpa_backward_ms(q, k, v, dout, packed, h, dh, mask, causal) -> float:
 # `nvcc -Xptxas -v` of the attention kernels' sources, started beside the
 # library build in phase_build and read after check_attention (forward),
 # check_flash_backward (backward) and check_decode_attention (kernels 11-12)
-PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention")
+PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
+                 "fused_decode")
+# the fused step's kernels other than the bf16 projection (PR 11 left them
+# as they were): their registers and spills are listed, not gated
+FUSED_UNGATED = ("dense_kernel", "self_attn_kernel", "cross_attn_kernel",
+                 "ln_kernel")
+FUSED_KERNELS = 46   # proj 6, dense 4, self 2, cross 32, ln 2
 _PTXAS = {}
 
 
@@ -888,12 +895,21 @@ def start_ptxas(stems=PTXAS_SOURCES):
 
 
 def _kernel_name(entry):
-    """A readable name of a mangled kernel entry of the attention sources:
-    flash "<kernel> Dh <n>", grouped "<dtype> <mode> KT <n>"; else None."""
+    """A readable name of a mangled kernel entry of the attention and fused
+    decode sources: flash "<kernel> Dh <n>", grouped "<dtype> <mode> KT
+    <n>", fused decode "<kernel> <template arguments>"; else None."""
     # the kernel's name follows its length in the mangled entry
     k = re.search(r"\dflash_(\w+?)ILi(\d+)", entry)
     if k:
         return f"{k.group(1)} Dh {k.group(2)}"
+    k = re.search(r"\d((?:proj|dense|self_attn|cross_attn|ln)_kernel)I(\w+?)EEv",
+                  entry)
+    if k:
+        names = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "f32",
+                 "a": "int8"}
+        args = [names.get(t, t[2:-1]) for t in re.findall(
+            r"13__nv_bfloat16|S1_|Li\d+E|f|a", k.group(2))]
+        return f"{k.group(1)} <{', '.join(args)}>"
     k = re.search(r"grouped_attn_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d+)E",
                   entry)
     if k:
@@ -1390,6 +1406,7 @@ def check_fused_decode_huge(results):
             torch.cuda.empty_cache()
     del case, q8
     torch.cuda.empty_cache()
+    report_ptxas("fused_decode", FUSED_KERNELS, ungated=FUSED_UNGATED)
 
 
 # the grouped decode cross-attention's model shapes (kernels 11, 12) as

@@ -15,15 +15,30 @@
 //
 // What bounds it on the H100: bytes. At Prismer-BASE batch 8 (N = 24 rows)
 // one step reads ~240 MB of decoder weights, ~284 MB of cross K/V and ~19 MB
-// of self cache against ~6 GFLOP, ~90 us at 3.35 TB/s. What the design does
-// about it:
-//   * every weight byte is read once per step for all N rows: a projection
-//     block holds the (N, K) input in shared memory and streams its weight
-//     rows (16-byte loads, coalesced, prefetched to L2 while the input tile
-//     loads) against it. bf16: tensor cores (mma.sync m16n8k16, fp32
-//     accumulation), one block per 8 output columns with its 8 warps
-//     splitting K, partial sums added in warp order; fp32 (the card-side
-//     parity runs): FMA, one warp per output column;
+// of self cache against ~6 GFLOP, ~90 us at 3.35 TB/s; at HUGE 830 MB of
+// weights. What the design does about it:
+//   * bf16 projections (proj_kernel): every weight byte is read once per
+//     step for all N rows. A block owns 64 output columns and computes
+//     out^T = W x^T on wgmma, the 64 x 64 weight box as the A operand and
+//     the rows of x (N rounded up to 8..32, 48 or 64) as B, both K-major in
+//     the 128-byte swizzle, the sums in fp32 registers. The weights stream
+//     through a ring of 8 KB boxes by TMA, each stage on an mbarrier, from
+//     tensor maps over the packed weights encoded once per (w_all, D, F,
+//     NLc); the block's slice of x is staged once. Projections with few
+//     column tiles split K over a thread-block cluster of up to 8 blocks
+//     (dense_plan, mirrored by ops/fused_decode.dense_plan): rank 0 reads
+//     the peers' partial tiles through distributed shared memory after a
+//     cluster barrier and adds them in rank order, so repeats are
+//     bit-identical, then runs the epilogue. No atomics;
+//   * fp32 projections (the card-side parity runs): FMA, one warp per
+//     output column (dense_kernel);
+//   * each LayerNorm but the last is folded into the projection that reads
+//     it (the next layer's qkv, cross-q, adaptor down, W1): every block of
+//     that launch computes the two-pass statistics of its rows of o + res
+//     (LnRow, the code of the final LN's ln_row, so the LN'd values are
+//     the ones an LN kernel writes), applies the LN to its K slice as it
+//     stages it, and the blocks of column tile 0 also write their slices
+//     to the residual buffer the later kernels read;
 //   * cross-attention runs one block per (sample, head) and reads that
 //     sample's K/V slice once for all its beams (the TPU kernel's beam
 //     grouping, without its 8-row padding and 0/1 selector matmuls);
@@ -37,20 +52,38 @@
 //     rounded to the compute dtype, before the scores; the normalised
 //     probabilities * v_scale in fp32, rounded, before the PV sum. The
 //     streamed tensor is never rescaled element by element;
-//   * each LayerNorm is one short kernel, one warp per row, the row held in
-//     registers; the projections read its output as a plain input tile;
 //   * the beam reorder rides on the self-attention read: block (row, head)
 //     reads its row's source row from the old cache, writes it to the second
 //     buffer, writes the fresh K/V column at `index`, and attends. It cannot
 //     permute in place (row n reads row flat_beam[n]).
 // Layer i+1 depends on all of layer i across blocks, so the entry launches a
-// fixed sequence of short kernels per layer (14 for a layer with
-// cross-attention, 13 for the first, 7 for the output layer, one final
-// LayerNorm: 175 at 12 + 1 layers) on the caller's stream: one host call per
-// step, no grid-wide barriers to deadlock, no per-phase register budget
-// shared across phases. A cooperative persistent kernel or a CUDA graph would
-// remove the launch gaps; that is later work, as are tensor-core tiles for
-// the FMA (fp32) projections.
+// fixed sequence of kernels per layer on the caller's stream: 10 for a layer
+// with cross-attention, 5 for the output layer and one final LayerNorm (126
+// at 12 + 1 layers, 246 at 24 + 1; ops/fused_decode.step_launches), one
+// host call per step, no grid-wide barrier. Every launch carries
+// programmatic stream serialization (PDL, `launch`), so a kernel's blocks
+// become resident while the kernel before it runs, and the rule is:
+//   * every block of every kernel of the step executes grid_dep_wait
+//     (griddepcontrol.wait), unconditionally and before it exits: a kernel
+//     that skipped it could complete before the kernel it follows, and the
+//     next one, whose wait only covers its own predecessor, could then read
+//     that kernel's output early;
+//   * before the wait a kernel reads only what is constant during the step
+//     (packed weights, by TMA into the projection's ring; fp32 biases and
+//     LN parameters; tensor maps passed as __grid_constant__ parameters) and
+//     writes nothing, so every write to xbuf, qkv, att, o and act follows
+//     the completion of every earlier kernel;
+//   * the trigger (grid_dep_launch) follows the wait, so at most the next
+//     launch waits resident beside a running one; a trigger before the wait
+//     would let the whole step's launches pile up on the SMs. A projection
+//     block stays within half an SM's shared memory (dense_plan) so that
+//     one block of the next launch fits beside it;
+//   * the first launch of a step follows PyTorch's kernels (lm_topk,
+//     beam_update, the cache swap), which never trigger early: its wait
+//     ends at their completion.
+// A persistent kernel or one CUDA graph per step would also remove the
+// host's issue of each launch; that is later work, as are the cross,
+// int8-cross and self phases on the card's newer instructions.
 //
 // Layouts (ops/fused_decode.py says the same):
 //   hidden (N, D); self caches (NL, T, N, D), so a step's column is one
@@ -65,6 +98,8 @@
 //                   bau | lnad s, b | b1 F | b2 | ln3 s, b
 //     output layer: bqkv 3D | bso | ln1 s, b | b1 F | b2 | ln3 s, b
 
+#include <cooperative_groups.h>
+
 #include <algorithm>
 #include <type_traits>
 #include <utility>
@@ -73,6 +108,8 @@
 #include "hopper.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 using prismer::from_f;
 using prismer::round_to;
@@ -87,7 +124,6 @@ constexpr int kDenseWarps = 8;
 constexpr int kDenseThreads = 32 * kDenseWarps;
 constexpr int kMaxRows = 32;           // rows per block; more rows, more blocks
 constexpr int kChunkBytes = 48 * 1024; // input tile of an FMA projection
-constexpr int kMmaChunk = 1024;        // k per input tile of an mma one
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr int kSelfThreads = 128;
 constexpr int kCrossThreads = 512;
@@ -232,14 +268,18 @@ struct DenseParams {
   T* res_out;          // (N, K)
   float eps;
   int N, K, M, kc, act;
+  // bf16: the weight tensor map that holds W (host memory, read by the
+  // launcher) and W's layer and first row in it
+  const CUtensorMap* map;
+  int layer, row;
 };
 
-// the (mean, rstd) of rows [row0, row0 + rows) of LN(ln_o + ln_res), one
-// warp per row, into stats
+// the (mean, rstd) of rows row0 + n of LN(ln_o + ln_res), n = first,
+// first + step, .. < rows, one warp per row, into stats[n]
 template <typename T>
 __device__ void ln_stats_rows(const DenseParams<T>& p, int row0, int rows,
-                              float2* stats, int warp, int warps, int lane) {
-  for (int n = warp; n < rows; n += warps) {
+                              float2* stats, int first, int step, int lane) {
+  for (int n = first; n < rows; n += step) {
     const size_t off = static_cast<size_t>(row0 + n) * p.K;
     LnRow<T> r;
     r.load(p.ln_o + off, p.ln_res + off, p.K, p.eps, lane);
@@ -356,80 +396,6 @@ dense_kernel(const DenseParams<T> p) {
   }
 }
 
-// bf16 tensor-core projection: one block per 8 output columns and up to 32
-// rows; its 8 warps split K in 32-wide chunks (prismer::mma_rows) and the
-// partial sums are added in warp order, so the result does not depend on
-// scheduling.
-template <int MT>
-__global__ void __launch_bounds__(kDenseThreads)
-dense_mma_kernel(const DenseParams<__nv_bfloat16> p) {
-  using bf16 = __nv_bfloat16;
-  constexpr int R = MT * 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldx = prismer::mma_ldx(p.kc);
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);             // (R, ldx)
-  float* red = reinterpret_cast<float*>(xs + R * ldx);       // (warps, R, 8)
-  float2* stats = reinterpret_cast<float2*>(red + kDenseWarps * R * 8);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row0 = blockIdx.y * R;
-  const int rows = min(R, p.N - row0);
-  const int col0 = blockIdx.x * 8;
-
-  if (warp == 0) {  // the block's 8 weight rows head for L2
-    for (int c = 0; c < 8 && col0 + c < p.M; ++c) {
-      prismer::prefetch_l2(p.w + static_cast<size_t>(col0 + c) * p.K,
-                           p.K * static_cast<int>(sizeof(bf16)), lane);
-    }
-  }
-  grid_dep_wait();
-  grid_dep_launch();
-  const bool ln = p.ln_s != nullptr;
-  if (ln) {
-    ln_stats_rows(p, row0, rows, stats, warp, kDenseWarps, lane);
-    __syncthreads();
-  }
-  float acc[MT][1][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    acc[m][0][0] = acc[m][0][1] = acc[m][0][2] = acc[m][0][3] = 0.f;
-  }
-  for (int k0 = 0; k0 < p.K; k0 += p.kc) {
-    const int len = min(p.kc, p.K - k0);
-    if (k0 > 0) __syncthreads();
-    if (ln) {
-      load_rows_ln<bf16, R>(p, row0, rows, k0, len, stats, blockIdx.x == 0,
-                            xs, ldx);
-    } else {
-      prismer::load_rows<bf16, R>(p.x, p.K, row0, rows, k0, len, xs, ldx);
-    }
-    __syncthreads();
-    prismer::mma_rows<MT, 1, kDenseWarps, 4>(xs, ldx, p.w, p.K, k0, len, col0,
-                                          p.M, warp, lane, acc);
-  }
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    float* r0 = red + (warp * R + m * 16 + gid) * 8 + tig * 2;
-    r0[0] = acc[m][0][0];
-    r0[1] = acc[m][0][1];
-    r0[64] = acc[m][0][2];     // row + 8
-    r0[65] = acc[m][0][3];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < R * 8; e += kDenseThreads) {
-    const int r = e / 8;
-    const int col = col0 + (e - r * 8);
-    if (r < rows && col < p.M) {
-      float s = 0.f;
-      for (int w = 0; w < kDenseWarps; ++w) s += red[(w * R + r) * 8 + e % 8];
-      p.out[static_cast<size_t>(row0 + r) * p.M + col] =
-          dense_out<bf16>(s, p.bias[col], p.act);
-    }
-  }
-}
-
 template <typename T, int NR>
 cudaError_t launch_dense_nr(DenseParams<T> p, cudaStream_t st) {
   static size_t granted = 48 * 1024;
@@ -454,22 +420,249 @@ cudaError_t launch_dense_fma(const DenseParams<T>& p, cudaStream_t st) {
   }
 }
 
-template <int MT>
-cudaError_t launch_dense_mma(DenseParams<__nv_bfloat16> p, cudaStream_t st) {
-  static size_t granted = 48 * 1024;
-  constexpr int R = MT * 16;
-  p.kc = std::min(p.K, kMmaChunk);
-  const size_t smem =
-      static_cast<size_t>(R) * prismer::mma_ldx(p.kc) * 2 +
-      static_cast<size_t>(kDenseWarps) * R * 8 * sizeof(float) +
-      R * sizeof(float2);
-  const cudaError_t err = allow_smem(dense_mma_kernel<MT>, smem, &granted);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.M + 7) / 8, (p.N + R - 1) / R);
-  return launch(dense_mma_kernel<MT>, grid, kDenseThreads, smem, 1, st, p);
+// ---------------------------------------------------------------------------
+// bf16 projection: wgmma on a TMA weight ring, split-K over a cluster
+// ---------------------------------------------------------------------------
+
+// bf16 projection for Hopper: a block owns 64 output columns and computes
+// out^T (64 x NT) = W (64 x K slice) . x^T (K slice x NT) with wgmma, the
+// weight tile as the A operand and the input rows as B, both K-major bf16
+// in the 128-byte swizzle, the fp32 sums in registers. The weights stream
+// through a ring of 64 x 64 boxes (8 KB) by TMA, each stage on its own
+// mbarrier; thread 0 fills the ring before the PDL wait (the weights do
+// not depend on the kernels before), and refills a stage once the
+// warpgroup's products on it have retired. The input slice is staged once,
+// after the wait, by all threads (LN'd first where an LN precedes). The
+// `split` blocks of a cluster take K slices; rank r's partial tile is read
+// by rank 0 through distributed shared memory after a cluster barrier and
+// added in rank order (0, 1, .., split - 1), so repeats are bit-identical;
+// rank 0 runs dense_out's epilogue.
+
+constexpr int kProjThreads = 128;        // one warpgroup
+constexpr int kTile = 64;                // output columns per block; k per box
+constexpr int kBoxBytes = kTile * kTile * 2;   // one 64 x 64 bf16 weight box
+constexpr int kMaxStages = 8;
+constexpr int kMaxSplit = 8;             // the portable cluster size
+constexpr int kMinBlocks = 128;          // split until a launch has this many
+constexpr int kMaxTileRows = 64;
+// two projection blocks fit an SM's 228 KB (1 KB each reserved): one of the
+// running launch and one of the next, resident early under PDL
+constexpr int kProjSmemBudget = 113 * 1024;
+
+// The launch shape of one projection: `dense_plan` here and
+// ops/fused_decode.dense_plan in Python compute it the same way.
+struct DensePlan {
+  int col_tiles;   // 64-column tiles of the M outputs
+  int rows;        // rows per row tile: N rounded up to 8, 16, 24, 32, 48, 64
+  int row_tiles;   // row tiles of N
+  int k_tiles;     // 64-wide tiles of K
+  int split;       // blocks per cluster, each a K slice
+  int slice;       // k tiles of the largest slice
+  int stages;      // weight boxes in flight per block
+  int smem;        // dynamic shared memory bytes per block
+};
+
+inline int proj_smem(int rows, int slice, int stages, int split) {
+  return stages * kBoxBytes + slice * rows * 128 +            // ring, x
+         (split > 1 ? kTile * rows * 4 : 0) +                  // partial
+         rows * 8 + stages * 8 + 1024;              // LN stats, bars, align
 }
 
-// fp32 (the card-side parity runs): FMA tiles; bf16: tensor-core tiles
+inline DensePlan dense_plan(int M, int K, int N) {
+  DensePlan q;
+  q.col_tiles = (M + kTile - 1) / kTile;
+  const int r8 = (std::min(N, kMaxTileRows) + 7) / 8 * 8;
+  q.rows = r8 <= 32 ? r8 : (r8 <= 48 ? 48 : 64);
+  q.row_tiles = (N + q.rows - 1) / q.rows;
+  q.k_tiles = (K + kTile - 1) / kTile;
+  q.split = 1;
+  while (q.split < kMaxSplit && 2 * q.split <= q.k_tiles &&
+         q.col_tiles * q.row_tiles * q.split < kMinBlocks) {
+    q.split *= 2;
+  }
+  q.slice = (q.k_tiles + q.split - 1) / q.split;
+  q.stages = std::min(q.slice, kMaxStages);
+  while (q.stages > 2 &&
+         proj_smem(q.rows, q.slice, q.stages, q.split) > kProjSmemBudget) {
+    --q.stages;
+  }
+  q.smem = proj_smem(q.rows, q.slice, q.stages, q.split);
+  return q;
+}
+
+struct ProjParams {
+  DenseParams<__nv_bfloat16> d;
+  int k_tiles, split, stages;   // from dense_plan
+};
+
+template <int NT>
+__global__ void __launch_bounds__(kProjThreads)
+proj_kernel(const __grid_constant__ CUtensorMap wmap, const ProjParams p) {
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const DenseParams<bf16>& d = p.d;
+  const int tid = threadIdx.x;
+  const int rank = blockIdx.x;                 // K slice = rank in cluster
+  const int m0 = blockIdx.y * kTile;           // output columns
+  const int n0 = blockIdx.z * NT;              // input rows
+  const int rows = min(NT, d.N - n0);
+  const int kt0 = rank * p.k_tiles / p.split;
+  const int tiles = (rank + 1) * p.k_tiles / p.split - kt0;
+  const int slice = (p.k_tiles + p.split - 1) / p.split;
+  const int stages = p.stages;
+  uint8_t* ring = hopper::align_1024(smem_raw);
+  uint8_t* xs = ring + stages * kBoxBytes;                 // [slice][NT][64]
+  float* part = reinterpret_cast<float*>(xs + slice * NT * 128);
+  float2* stats = reinterpret_cast<float2*>(
+      part + (p.split > 1 ? kTile * NT : 0));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + NT);
+
+  auto issue = [&](int i) {   // weight box i of the slice into its stage
+    uint64_t* bar = bars + i % stages;
+    hopper::mbar_arrive_expect_tx(bar, kBoxBytes);
+    hopper::tma_load_4d(ring + (i % stages) * kBoxBytes, &wmap, bar,
+                        (kt0 + i) * kTile, d.row + m0, d.layer, 0);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) hopper::mbar_init(bars + s, 1);
+    hopper::mbar_init_fence();
+    for (int i = 0; i < min(stages, tiles); ++i) issue(i);
+  }
+  grid_dep_wait();
+  grid_dep_launch();
+
+  // the input slice, in the 128-byte swizzle: 16-byte chunk j of row n of
+  // column block c at c * NT * 128 + n * 128 + (j ^ (n % 8)) * 16; rows
+  // past N and columns past K as zeros. With an LN, the blocks of column
+  // tile 0 also write the LN'd slice to the residual.
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const bool ln = d.ln_s != nullptr;
+  if (ln) {
+    // each row's statistics are computed by one block of the cluster (rows
+    // n = rank, rank + split, ..) and read by the others through
+    // distributed shared memory: every block of the launch reading every
+    // row from L2 would read the same lines ~100 times over at once
+    constexpr int kWarps = kProjThreads / 32;
+    ln_stats_rows(d, n0, rows, stats, rank + p.split * warp,
+                  p.split * kWarps, lane);
+    if (p.split > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      for (int n = tid; n < rows; n += kProjThreads) {
+        if (n % p.split != rank) {
+          stats[n] = cluster.map_shared_rank(stats, n % p.split)[n];
+        }
+      }
+    }
+    hopper::named_sync(1, kProjThreads);
+  }
+  const bool res = ln && blockIdx.y == 0;
+  for (int e = tid; e < tiles * NT * 8; e += kProjThreads) {
+    const int c = e / (NT * 8);
+    const int n = (e / 8) % NT;
+    const int j = e % 8;
+    const int k = (kt0 + c) * kTile + j * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (n < rows && k < d.K) {
+      v = ln ? ln_vec(d, n0 + n, k, stats[n], res)
+             : *reinterpret_cast<const uint4*>(
+                   d.x + static_cast<size_t>(n0 + n) * d.K + k);
+    }
+    *reinterpret_cast<uint4*>(xs + c * NT * 128 + n * 128 +
+                              ((j ^ (n & 7)) * 16)) = v;
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();   // the slice is staged; the barriers are initialised
+
+  float acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+  const uint32_t ring_a = hopper::smem_addr(ring);
+  const uint32_t xs_a = hopper::smem_addr(xs);
+  for (int i = 0; i < tiles; ++i) {
+    hopper::mbar_wait(bars + i % stages, (i / stages) & 1);
+    const uint32_t a = ring_a + (i % stages) * kBoxBytes;
+    const uint32_t b = xs_a + i * NT * 128;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < kTile / 16; ++k) {
+      hopper::wgmma_ss<NT>(acc, hopper::kmajor_desc(a + k * 32),
+                           hopper::kmajor_desc(b + k * 32), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs<NT / 2>(acc);
+    if (i + stages < tiles) {   // the stage is free once every warp retired
+      __syncthreads();
+      if (tid == 0) issue(i + stages);
+    }
+  }
+
+  if (p.split > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    if (rank != 0) {
+#pragma unroll
+      for (int i = 0; i < NT / 2; ++i) part[i * kProjThreads + tid] = acc[i];
+    }
+    cluster.sync();   // every partial is in its block's shared memory
+    if (rank == 0) {
+      for (int r = 1; r < p.split; ++r) {
+        const float* peer = cluster.map_shared_rank(part, r);
+#pragma unroll
+        for (int i = 0; i < NT / 2; ++i) acc[i] += peer[i * kProjThreads + tid];
+      }
+    }
+    cluster.sync();   // the peers stay resident until rank 0 has read
+    if (rank != 0) return;
+  }
+
+  // acc[4j + 2h + e]: output column m0 + 16 warp + lane / 4 + 8h, input
+  // row n0 + 8j + 2 (lane % 4) + e
+  const int gid = lane / 4;
+  const int tig = lane % 4;
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 16 * warp + gid + 8 * h;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = 8 * j + 2 * tig + e;
+        if (m < d.M && n < rows) {
+          d.out[static_cast<size_t>(n0 + n) * d.M + m] =
+              dense_out<bf16>(acc[4 * j + 2 * h + e], d.bias[m], d.act);
+        }
+      }
+    }
+  }
+}
+
+template <int NT>
+cudaError_t launch_proj_rows(const ProjParams& p, const CUtensorMap& map,
+                             const DensePlan& q, cudaStream_t st) {
+  static size_t granted = 48 * 1024;
+  const cudaError_t err = allow_smem(proj_kernel<NT>, q.smem, &granted);
+  if (err != cudaSuccess) return err;
+  return launch(proj_kernel<NT>, dim3(q.split, q.col_tiles, q.row_tiles),
+                kProjThreads, q.smem, q.split, st, map, p);
+}
+
+cudaError_t launch_proj(const DenseParams<__nv_bfloat16>& d,
+                        cudaStream_t st) {
+  const DensePlan q = dense_plan(d.M, d.K, d.N);
+  const ProjParams p{d, q.k_tiles, q.split, q.stages};
+  switch (q.rows) {
+    case 8: return launch_proj_rows<8>(p, *d.map, q, st);
+    case 16: return launch_proj_rows<16>(p, *d.map, q, st);
+    case 24: return launch_proj_rows<24>(p, *d.map, q, st);
+    case 32: return launch_proj_rows<32>(p, *d.map, q, st);
+    case 48: return launch_proj_rows<48>(p, *d.map, q, st);
+    default: return launch_proj_rows<64>(p, *d.map, q, st);
+  }
+}
+
+// fp32 (the card-side parity runs): FMA tiles; bf16: the wgmma kernel
 template <typename T>
 cudaError_t launch_dense(const DenseParams<T>& p, cudaStream_t st) {
   return launch_dense_fma<T>(p, st);
@@ -478,7 +671,45 @@ cudaError_t launch_dense(const DenseParams<T>& p, cudaStream_t st) {
 template <>
 cudaError_t launch_dense<__nv_bfloat16>(const DenseParams<__nv_bfloat16>& p,
                                         cudaStream_t st) {
-  return p.N <= 16 ? launch_dense_mma<1>(p, st) : launch_dense_mma<2>(p, st);
+  return launch_proj(p, st);
+}
+
+// The bf16 weights as TMA tensor maps (64 x 64 boxes, 128-byte swizzle),
+// [0] over the cross layers, [1] over the output layer: dmap the rows of
+// the matrices with K = D (qkv, self-out, cross-q, cross-out, adaptor down
+// and up, W1, one after the other), one layer after the other; fmap W2
+// (K = F). Encoded once per (w_all, D, F, NLc): the weights do not move
+// between steps.
+struct WeightMaps {
+  const void* w = nullptr;
+  int D = 0, F = 0, NLc = 0;
+  CUtensorMap dmap[2], fmap[2];
+};
+
+const WeightMaps* weight_maps(const void* w_all, int D, int F, int NLc) {
+  static WeightMaps m;
+  if (m.w == w_all && m.D == D && m.F == F && m.NLc == NLc) return &m;
+  const int64_t dd = static_cast<int64_t>(D) * D;
+  const int64_t fd = static_cast<int64_t>(F) * D;
+  const int64_t layer = 8 * dd + 2 * fd;
+  const auto* w = static_cast<const __nv_bfloat16*>(w_all);
+  const auto* wo = w + NLc * layer;
+  bool ok = hopper::encode_bf16_rows(&m.dmap[1], wo, 1, 1, 4 * D + F, D, 0,
+                                     0, D, kTile) &&
+            hopper::encode_bf16_rows(&m.fmap[1], wo + 4 * dd + fd, 1, 1, D,
+                                     F, 0, 0, F, kTile);
+  if (NLc > 0) {
+    ok = ok &&
+         hopper::encode_bf16_rows(&m.dmap[0], w, 1, NLc, 8 * D + F, D, 0,
+                                  layer, D, kTile) &&
+         hopper::encode_bf16_rows(&m.fmap[0], w + 8 * dd + fd, 1, NLc, D, F,
+                                  0, layer, F, kTile);
+  }
+  m.w = ok ? w_all : nullptr;
+  m.D = D;
+  m.F = F;
+  m.NLc = NLc;
+  return ok ? &m : nullptr;
 }
 
 // ---------------------------------------------------------------------------
@@ -934,6 +1165,14 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
   const int beams = N / a.B;
   RETURN_IF_ERR(allow_smem(self_attn_kernel<T>, self_smem, &self_granted));
 
+  // bf16: the weights' tensor maps, and where each W lies in them
+  const WeightMaps* maps = nullptr;
+  if (std::is_same<T, __nv_bfloat16>::value) {
+    maps = weight_maps(a.w_all, D, F, a.NLc);
+    if (maps == nullptr) return cudaErrorInvalidValue;
+  }
+  const T* const w0 = static_cast<const T*>(a.w_all);
+  const size_t wl = 8 * dd + 2 * fd;       // one cross layer's weights
   auto params = [&](const T* w, const float* bias, T* out, int K, int M,
                     int act_kind) {
     DenseParams<T> p{};
@@ -945,6 +1184,16 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
     p.K = K;
     p.M = M;
     p.act = act_kind;
+    if (maps != nullptr) {
+      const size_t off = static_cast<size_t>(w - w0);
+      const int li = static_cast<int>(off / wl);   // a.NLc: the output layer
+      const int o = li < a.NLc ? 0 : 1;
+      const size_t in = off - li * wl;
+      const size_t w2 = (o == 0 ? 8 : 4) * dd + fd;   // W2 in the layer
+      p.map = in < w2 ? &maps->dmap[o] : &maps->fmap[o];
+      p.row = static_cast<int>(in < w2 ? in / D : (in - w2) / F);
+      p.layer = o == 0 ? li : 0;
+    }
     return p;
   };
   auto dense = [&](const T* x, const T* w, const float* bias, T* out, int K,
@@ -1073,8 +1322,7 @@ extern "C" int prismer_fused_decode_step(
       D % H != 0 || D % 8 != 0 || D > kMaxLnDim || F % 8 != 0 ||
       (D / H) % 8 != 0 || lpr <= 0 || lpr > 32 || (lpr & (lpr - 1)) != 0 ||
       NLc < 0 || NL != NLc + 1 || T <= 0 || L <= 0 || index < 0 ||
-      index >= T || (dtype != 0 && dtype != 1) ||
-      (dtype == 1 && (D % 32 != 0 || F % 32 != 0))) {  // 32-wide mma chunks
+      index >= T || (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }
   const bool in_place = out_k == self_k && out_v == self_v;

@@ -9,6 +9,15 @@ for CUDA tensors and computes `fused_decode_step_reference` for tensors on
 the CPU. Launches are counted in `fused_decode_step.launches` (one per step),
 those with int8 cross K/V in `fused_decode_step.int8_launches`.
 
+One step is a fixed sequence of kernels on the caller's stream,
+`step_launches(nlc)` of them (126 at Prismer-BASE, 246 at LARGE and HUGE),
+each launched with programmatic dependent launch so that it becomes
+resident while the one before it runs. Each LayerNorm but the last runs
+inside the projection that reads it. A bf16 projection is the wgmma kernel
+on a TMA weight ring; `dense_plan` mirrors the C entry's launch shape for it
+(64 output columns a block, K split over a cluster of up to 8 blocks, the
+ring's depth, shared memory).
+
 Layouts (the port's own):
   * hidden (N, D), N = B * beams rows;
   * self caches (NL, T, N, D): a step's column is one contiguous (N, D) slab;
@@ -392,14 +401,13 @@ def fused_decode_step(hidden0: torch.Tensor, w_all: torch.Tensor,
     # slices (16 bytes, 8 values in int8): the head width is 64 in every
     # registry decoder
     lanes = dh // (8 if quant else 16 // hidden0.element_size())
-    if dtype not in _DTYPE_CODES or d % 8 or dh % 8 or (
-            dtype == torch.bfloat16 and (d % 32 or f % 32)) or \
+    if dtype not in _DTYPE_CODES or d % 8 or f % 8 or dh % 8 or \
             not 0 < lanes <= 32 or lanes & (lanes - 1):
         raise ValueError(f"fused_decode_step: kernel takes "
-                         f"{list(_DTYPE_CODES)} with D and the head width "
-                         f"multiples of 8, D and F of 32 in bf16, a "
-                         f"power-of-two count of lane slices per head row; "
-                         f"got {dtype}, D {d}, F {f}, {heads} heads")
+                         f"{list(_DTYPE_CODES)} with D, F and the head "
+                         f"width multiples of 8, a power-of-two count of "
+                         f"lane slices per head row; got {dtype}, D {d}, F "
+                         f"{f}, {heads} heads")
     if flat_beam is None:
         out_k, out_v = self_k, self_v
     key_mask = key_mask.to(torch.int32).contiguous()

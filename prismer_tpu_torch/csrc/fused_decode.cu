@@ -288,10 +288,12 @@ __device__ void ln_stats_rows(const DenseParams<T>& p, int row0, int rows,
 }
 
 // 16 bytes (Vec<T>::kN values) of LN(ln_o + ln_res), row n, columns k ..,
-// rounded to T; with `res` also written to res_out
+// rounded to T, with the LN scale and bias of those columns at sc and bs;
+// with `res` also written to res_out
 template <typename T>
 __device__ __forceinline__ uint4 ln_vec(const DenseParams<T>& p, int n,
-                                        int k, float2 st, bool res) {
+                                        int k, float2 st, const float* sc,
+                                        const float* bs, bool res) {
   constexpr int V = Vec<T>::kN;
   const size_t off = static_cast<size_t>(n) * p.K + k;
   float o[V], r[V];
@@ -301,8 +303,7 @@ __device__ __forceinline__ uint4 ln_vec(const DenseParams<T>& p, int n,
   T* y = reinterpret_cast<T*>(&v);
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    y[j] = from_f<T>(ln_apply(o[j] + r[j], st.x, st.y, p.ln_s[k + j],
-                              p.ln_s[p.K + k + j]));
+    y[j] = from_f<T>(ln_apply(o[j] + r[j], st.x, st.y, sc[j], bs[j]));
   }
   if (res) *reinterpret_cast<uint4*>(p.res_out + off) = v;
   return v;
@@ -320,8 +321,10 @@ __device__ void load_rows_ln(const DenseParams<T>& p, int row0, int rows,
   for (int e = threadIdx.x; e < NR * segs; e += blockDim.x) {
     const int n = e / segs;
     const int c = (e - n * segs) * V;
-    const uint4 v = n < rows ? ln_vec(p, row0 + n, k0 + c, stats[n], res)
-                             : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 v =
+        n < rows ? ln_vec(p, row0 + n, k0 + c, stats[n], p.ln_s + k0 + c,
+                          p.ln_s + p.K + k0 + c, res)
+                 : make_uint4(0u, 0u, 0u, 0u);
     *reinterpret_cast<uint4*>(xs + n * ldx + c) = v;
   }
 }
@@ -464,7 +467,8 @@ struct DensePlan {
 
 inline int proj_smem(int rows, int slice, int stages, int split) {
   return stages * kBoxBytes + slice * rows * 128 +            // ring, x
-         (split > 1 ? kTile * rows * 4 : 0) +                  // partial
+         (split > 1 ? kTile * rows * 4 : 0) +                  // partials
+         kTile * 4 + 2 * slice * kTile * 4 +           // bias, LN parameters
          rows * 8 + stages * 8 + 1024;              // LN stats, bars, align
 }
 
@@ -513,8 +517,9 @@ proj_kernel(const __grid_constant__ CUtensorMap wmap, const ProjParams p) {
   uint8_t* ring = hopper::align_1024(smem_raw);
   uint8_t* xs = ring + stages * kBoxBytes;                 // [slice][NT][64]
   float* part = reinterpret_cast<float*>(xs + slice * NT * 128);
-  float2* stats = reinterpret_cast<float2*>(
-      part + (p.split > 1 ? kTile * NT : 0));
+  float* bias = part + (p.split > 1 ? kTile * NT : 0);   // [64]
+  float* lnp = bias + kTile;        // LN scale, then bias, of the K slice
+  float2* stats = reinterpret_cast<float2*>(lnp + 2 * slice * kTile);
   uint64_t* bars = reinterpret_cast<uint64_t*>(stats + NT);
 
   auto issue = [&](int i) {   // weight box i of the slice into its stage
@@ -528,6 +533,19 @@ proj_kernel(const __grid_constant__ CUtensorMap wmap, const ProjParams p) {
     hopper::mbar_init_fence();
     for (int i = 0; i < min(stages, tiles); ++i) issue(i);
   }
+  // the bias of the block's columns and the LN parameters of its K slice
+  // are constant during the step: read before the wait
+  const bool ln = d.ln_s != nullptr;
+  for (int t = tid; t < kTile; t += kProjThreads) {
+    bias[t] = m0 + t < d.M ? d.bias[m0 + t] : 0.f;
+  }
+  if (ln) {
+    for (int t = tid; t < tiles * kTile; t += kProjThreads) {
+      const int k = kt0 * kTile + t;
+      lnp[t] = k < d.K ? d.ln_s[k] : 0.f;
+      lnp[slice * kTile + t] = k < d.K ? d.ln_s[d.K + k] : 0.f;
+    }
+  }
   grid_dep_wait();
   grid_dep_launch();
 
@@ -537,7 +555,6 @@ proj_kernel(const __grid_constant__ CUtensorMap wmap, const ProjParams p) {
   // tile 0 also write the LN'd slice to the residual.
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const bool ln = d.ln_s != nullptr;
   if (ln) {
     // each row's statistics are computed by one block of the cluster (rows
     // n = rank, rank + split, ..) and read by the others through
@@ -565,7 +582,9 @@ proj_kernel(const __grid_constant__ CUtensorMap wmap, const ProjParams p) {
     const int k = (kt0 + c) * kTile + j * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (n < rows && k < d.K) {
-      v = ln ? ln_vec(d, n0 + n, k, stats[n], res)
+      const int kl = k - kt0 * kTile;
+      v = ln ? ln_vec(d, n0 + n, k, stats[n], lnp + kl,
+                      lnp + slice * kTile + kl, res)
              : *reinterpret_cast<const uint4*>(
                    d.x + static_cast<size_t>(n0 + n) * d.K + k);
     }
@@ -599,42 +618,44 @@ proj_kernel(const __grid_constant__ CUtensorMap wmap, const ProjParams p) {
     }
   }
 
-  if (p.split > 1) {
-    cg::cluster_group cluster = cg::this_cluster();
-    if (rank != 0) {
-#pragma unroll
-      for (int i = 0; i < NT / 2; ++i) part[i * kProjThreads + tid] = acc[i];
+  // acc[4j + 2h + e] of thread t: output column m0 + 16 (t / 32) + (t % 32)
+  // / 4 + 8h, input row n0 + 8j + 2 (t % 4) + e
+  auto store = [&](int t, int i, float sum) {
+    const int m = 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2);
+    const int n = 8 * (i / 4) + 2 * (t % 4) + i % 2;
+    if (m0 + m < d.M && n < rows) {
+      d.out[static_cast<size_t>(n0 + n) * d.M + m0 + m] =
+          dense_out<bf16>(sum, bias[m], d.act);
     }
-    cluster.sync();   // every partial is in its block's shared memory
-    if (rank == 0) {
-      for (int r = 1; r < p.split; ++r) {
-        const float* peer = cluster.map_shared_rank(part, r);
+  };
+  if (p.split == 1) {
 #pragma unroll
-        for (int i = 0; i < NT / 2; ++i) acc[i] += peer[i * kProjThreads + tid];
-      }
-    }
-    cluster.sync();   // the peers stay resident until rank 0 has read
-    if (rank != 0) return;
+    for (int i = 0; i < NT / 2; ++i) store(tid, i, acc[i]);
+    return;
   }
-
-  // acc[4j + 2h + e]: output column m0 + 16 warp + lane / 4 + 8h, input
-  // row n0 + 8j + 2 (lane % 4) + e
-  const int gid = lane / 4;
-  const int tig = lane % 4;
+  // split K: rank s sums and stores the fragments of threads [s * T / split,
+  // (s + 1) T / split) (T = 128). Every rank stores those fragments of its
+  // partial into rank s's slots (part, [rank][thread][fragment]), the
+  // cluster synchronises once, and rank s adds the slots in rank order, so
+  // the sums are bit-identical from run to run and equal to a sequential
+  // rank 0 + 1 + ... Nothing is read from a peer after the barrier.
+  cg::cluster_group cluster = cg::this_cluster();
+  const int per = kProjThreads / p.split;            // threads a rank sums
+  {
+    float4* slot = reinterpret_cast<float4*>(
+        cluster.map_shared_rank(part, tid / per) +
+        (rank * per + tid % per) * (NT / 2));
 #pragma unroll
-  for (int j = 0; j < NT / 8; ++j) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + 16 * warp + gid + 8 * h;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = 8 * j + 2 * tig + e;
-        if (m < d.M && n < rows) {
-          d.out[static_cast<size_t>(n0 + n) * d.M + m] =
-              dense_out<bf16>(acc[4 * j + 2 * h + e], d.bias[m], d.act);
-        }
-      }
+    for (int q = 0; q < NT / 8; ++q) {
+      slot[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                            acc[4 * q + 3]);
     }
+  }
+  cluster.sync();   // every rank's slots are full
+  for (int e = tid; e < per * (NT / 2); e += kProjThreads) {
+    float sum = part[e];
+    for (int r = 1; r < p.split; ++r) sum += part[r * per * (NT / 2) + e];
+    store(rank * per + e / (NT / 2), e % (NT / 2), sum);
   }
 }
 

@@ -108,11 +108,12 @@ class DensePlan(NamedTuple):
 
 
 def _proj_smem(rows: int, slice_: int, stages: int, split: int) -> int:
-    """Ring, input slice, partial tile (split > 1), LN statistics, stage
-    barriers, 1 KB of alignment slack."""
+    """Ring, input slice, partials (split > 1), the columns' bias and the
+    slice's LN parameters (fp32), LN statistics, stage barriers, 1 KB of
+    alignment slack."""
     return (stages * PROJ_TILE * PROJ_TILE * 2 + slice_ * rows * 128
-            + (PROJ_TILE * rows * 4 if split > 1 else 0) + rows * 8
-            + stages * 8 + 1024)
+            + (PROJ_TILE * rows * 4 if split > 1 else 0) + PROJ_TILE * 4
+            + 2 * slice_ * PROJ_TILE * 4 + rows * 8 + stages * 8 + 1024)
 
 
 def dense_plan(m: int, k: int, n: int) -> DensePlan:

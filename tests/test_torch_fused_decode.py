@@ -232,14 +232,16 @@ def test_dense_plan_fits_every_registry_decoder(model):
         # 8 (1 or 2 of the 12 k tiles a block, both in flight), the qkv 36
         # in clusters of 4, W1 48, W2 12 in clusters of 8 (6 k tiles a
         # block, all in flight); each block's ring, input slice (24 rows),
-        # partial tile, LN statistics, barriers and alignment slack
-        assert fd.dense_plan(d, d, 24) == (12, 24, 1, 12, 8, 2, 2, 29904)
+        # partials, bias and LN parameters, LN statistics, barriers and
+        # alignment slack
+        assert fd.dense_plan(d, d, 24) == (12, 24, 1, 12, 8, 2, 2, 31184)
         assert fd.dense_plan(3 * d, d, 24) == (36, 24, 1, 12, 4, 3, 3,
-                                               41176)
-        assert fd.dense_plan(f, d, 24) == (48, 24, 1, 12, 4, 3, 3, 41176)
-        assert fd.dense_plan(d, f, 24) == (12, 24, 1, 48, 8, 6, 6, 74992)
+                                               42968)
+        assert fd.dense_plan(f, d, 24) == (48, 24, 1, 12, 4, 3, 3, 42968)
+        assert fd.dense_plan(d, f, 24) == (12, 24, 1, 48, 8, 6, 6, 78320)
         assert fd.dense_plan(d, d, 24).smem_bytes == (
-            2 * 8192 + 2 * 24 * 128 + 64 * 24 * 4 + 24 * 8 + 2 * 8 + 1024)
+            2 * 8192 + 2 * 24 * 128 + 64 * 24 * 4 + 64 * 4 + 2 * 2 * 64 * 4
+            + 24 * 8 + 2 * 8 + 1024)
         # past 64 rows, row tiles of 64
         assert fd.dense_plan(d, d, 96)[1:3] == (64, 2)
 

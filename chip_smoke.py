@@ -44,6 +44,12 @@ path, the same for one train step with its encoder / decoder / optimizer
 split, and for one batch-16 segmentation forward its backbone / pixel
 decoder / decoder / post split and the deformable-attention kernel's share.
 
+The fused decode step (kernels 4 and 4b) is also timed as CUDA-graph
+replays beside CUDA events, checked for bit-identical repeats and for the
+kernels the C entry launched per step (`ops.fused_decode.step_launches`),
+and split by phase with torch.profiler at N 24 (`fused_step_split`); the
+records sit under `step` in its `kernels` entries.
+
 The grouped decode cross-attention (kernels 11-12) is held to its plain
 version also at its key split's edge shapes and on the prefill's head-split
 K/V views, and timed twice: L2-warm (one input set, replayed) and L2-cold
@@ -902,8 +908,8 @@ def _kernel_name(entry):
     k = re.search(r"\dflash_(\w+?)ILi(\d+)", entry)
     if k:
         return f"{k.group(1)} Dh {k.group(2)}"
-    k = re.search(r"\d((?:proj|dense|self_attn|cross_attn|ln)_kernel)I(\w+?)EEv",
-                  entry)
+    k = re.search(
+        r"\d((?:proj|dense|self_attn|cross_attn|ln)_kernel)I(\w+?)EEv", entry)
     if k:
         names = {"13__nv_bfloat16": "bf16", "S1_": "bf16", "f": "f32",
                  "a": "int8"}

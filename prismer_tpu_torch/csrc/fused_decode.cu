@@ -18,27 +18,33 @@
 // of self cache against ~6 GFLOP, ~90 us at 3.35 TB/s; at HUGE 830 MB of
 // weights. What the design does about it:
 //   * bf16 projections (proj_kernel): every weight byte is read once per
-//     step for all N rows. A block owns 64 output columns and computes
-//     out^T = W x^T on wgmma, the 64 x 64 weight box as the A operand and
-//     the rows of x (N rounded up to 8..32, 48 or 64) as B, both K-major in
-//     the 128-byte swizzle, the sums in fp32 registers. The weights stream
-//     through a ring of 8 KB boxes by TMA, each stage on an mbarrier, from
-//     tensor maps over the packed weights encoded once per (w_all, D, F,
-//     NLc); the block's slice of x is staged once. Projections with few
-//     column tiles split K over a thread-block cluster of up to 8 blocks
-//     (dense_plan, mirrored by ops/fused_decode.dense_plan): rank 0 reads
-//     the peers' partial tiles through distributed shared memory after a
-//     cluster barrier and adds them in rank order, so repeats are
-//     bit-identical, then runs the epilogue. No atomics;
+//     step for all N rows. A block owns 64 output columns; one warpgroup
+//     computes out^T = W x^T on wgmma, the 64 x 64 weight box as the A
+//     operand and the rows of x (N rounded up to 8..32, 48 or 64) as B,
+//     both K-major in the 128-byte swizzle, the sums in fp32 registers;
+//     all three warpgroups of the block stage the input. The weights
+//     stream through a ring of 8 KB boxes by TMA, each stage on an
+//     mbarrier, from tensor maps over the packed weights encoded once per
+//     (w_all, D, F, NLc), issued before the PDL wait; the block's slice of
+//     x is staged once. Projections with few column tiles split K over a
+//     thread-block cluster of up to 8 blocks (dense_plan, mirrored by
+//     ops/fused_decode.dense_plan): each rank stores its partial's
+//     fragments into the slots of the rank that sums them (distributed
+//     shared memory), one cluster barrier, and each rank adds its share in
+//     rank order and runs the epilogue on it, so repeats are bit-identical.
+//     No atomics;
 //   * fp32 projections (the card-side parity runs): FMA, one warp per
 //     output column (dense_kernel);
 //   * each LayerNorm but the last is folded into the projection that reads
-//     it (the next layer's qkv, cross-q, adaptor down, W1): every block of
-//     that launch computes the two-pass statistics of its rows of o + res
-//     (LnRow, the code of the final LN's ln_row, so the LN'd values are
-//     the ones an LN kernel writes), applies the LN to its K slice as it
-//     stages it, and the blocks of column tile 0 also write their slices
-//     to the residual buffer the later kernels read;
+//     it (the next layer's qkv, cross-q, adaptor down, W1), with the
+//     two-pass statistics of LnRow, the code of the final LN's ln_row, so
+//     the LN'd values are the ones an LN kernel writes. The projection
+//     applies the LN to its K slice as it stages it, and the blocks of
+//     column tile 0 also write their slices to the residual buffer the
+//     later kernels read. bf16: each row's statistics are computed by one
+//     block of the cluster and read by the others through distributed
+//     shared memory (every block reading every row made ~100 readers of
+//     the same L2 lines at once); fp32: every block computes its rows';
 //   * cross-attention runs one block per (sample, head) and reads that
 //     sample's K/V slice once for all its beams (the TPU kernel's beam
 //     grouping, without its 8-row padding and 0/1 selector matmuls);
@@ -427,21 +433,19 @@ cudaError_t launch_dense_fma(const DenseParams<T>& p, cudaStream_t st) {
 // bf16 projection: wgmma on a TMA weight ring, split-K over a cluster
 // ---------------------------------------------------------------------------
 
-// bf16 projection for Hopper: a block owns 64 output columns and computes
-// out^T (64 x NT) = W (64 x K slice) . x^T (K slice x NT) with wgmma, the
-// weight tile as the A operand and the input rows as B, both K-major bf16
-// in the 128-byte swizzle, the fp32 sums in registers. The weights stream
-// through a ring of 64 x 64 boxes (8 KB) by TMA, each stage on its own
-// mbarrier; thread 0 fills the ring before the PDL wait (the weights do
-// not depend on the kernels before), and refills a stage once the
+// A block owns 64 output columns; its first warpgroup computes out^T (64 x
+// NT) = W (64 x K slice) . x^T (K slice x NT) with wgmma. The weights
+// stream through a ring of 64 x 64 boxes (8 KB) by TMA, each stage on its
+// own mbarrier; thread 0 fills the ring before the PDL wait (the weights
+// do not depend on the kernels before), and refills a stage once the
 // warpgroup's products on it have retired. The input slice is staged once,
-// after the wait, by all threads (LN'd first where an LN precedes). The
-// `split` blocks of a cluster take K slices; rank r's partial tile is read
-// by rank 0 through distributed shared memory after a cluster barrier and
-// added in rank order (0, 1, .., split - 1), so repeats are bit-identical;
-// rank 0 runs dense_out's epilogue.
+// after the wait, by all three warpgroups (LN'd where an LN precedes). The
+// `split` blocks of a cluster take K slices and exchange their partials
+// once (the reduce-scatter below); each rank runs dense_out's epilogue on
+// its share.
 
-constexpr int kProjThreads = 128;        // one warpgroup
+constexpr int kProjThreads = 384;   // three warpgroups: all stage, one wgmma
+constexpr int kMmaThreads = 128;    // the warpgroup that runs wgmma
 constexpr int kTile = 64;                // output columns per block; k per box
 constexpr int kBoxBytes = kTile * kTile * 2;   // one 64 x 64 bf16 weight box
 constexpr int kMaxStages = 8;
@@ -450,7 +454,7 @@ constexpr int kMinBlocks = 128;          // split until a launch has this many
 constexpr int kMaxTileRows = 64;
 // two projection blocks fit an SM's 228 KB (1 KB each reserved): one of the
 // running launch and one of the next, resident early under PDL
-constexpr int kProjSmemBudget = 113 * 1024;
+constexpr int kProjSmemBudget = (228 - 2) / 2 * 1024;
 
 // The launch shape of one projection: `dense_plan` here and
 // ops/fused_decode.dense_plan in Python compute it the same way.
@@ -599,22 +603,24 @@ proj_kernel(const __grid_constant__ CUtensorMap wmap, const ProjParams p) {
   for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
   const uint32_t ring_a = hopper::smem_addr(ring);
   const uint32_t xs_a = hopper::smem_addr(xs);
-  for (int i = 0; i < tiles; ++i) {
-    hopper::mbar_wait(bars + i % stages, (i / stages) & 1);
-    const uint32_t a = ring_a + (i % stages) * kBoxBytes;
-    const uint32_t b = xs_a + i * NT * 128;
-    hopper::wgmma_fence();
+  if (tid < kMmaThreads) {
+    for (int i = 0; i < tiles; ++i) {
+      hopper::mbar_wait(bars + i % stages, (i / stages) & 1);
+      const uint32_t a = ring_a + (i % stages) * kBoxBytes;
+      const uint32_t b = xs_a + i * NT * 128;
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < kTile / 16; ++k) {
-      hopper::wgmma_ss<NT>(acc, hopper::kmajor_desc(a + k * 32),
-                           hopper::kmajor_desc(b + k * 32), 1);
-    }
-    hopper::wgmma_commit();
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs<NT / 2>(acc);
-    if (i + stages < tiles) {   // the stage is free once every warp retired
-      __syncthreads();
-      if (tid == 0) issue(i + stages);
+      for (int k = 0; k < kTile / 16; ++k) {
+        hopper::wgmma_ss<NT>(acc, hopper::kmajor_desc(a + k * 32),
+                             hopper::kmajor_desc(b + k * 32), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<NT / 2>(acc);
+      if (i + stages < tiles) {   // the stage is free once every warp retired
+        hopper::named_sync(2, kMmaThreads);
+        if (tid == 0) issue(i + stages);
+      }
     }
   }
 
@@ -629,19 +635,22 @@ proj_kernel(const __grid_constant__ CUtensorMap wmap, const ProjParams p) {
     }
   };
   if (p.split == 1) {
+    if (tid < kMmaThreads) {
 #pragma unroll
-    for (int i = 0; i < NT / 2; ++i) store(tid, i, acc[i]);
+      for (int i = 0; i < NT / 2; ++i) store(tid, i, acc[i]);
+    }
     return;
   }
-  // split K: rank s sums and stores the fragments of threads [s * T / split,
-  // (s + 1) T / split) (T = 128). Every rank stores those fragments of its
-  // partial into rank s's slots (part, [rank][thread][fragment]), the
-  // cluster synchronises once, and rank s adds the slots in rank order, so
-  // the sums are bit-identical from run to run and equal to a sequential
-  // rank 0 + 1 + ... Nothing is read from a peer after the barrier.
+  // split K: rank s sums and stores the fragments of threads [s * T /
+  // split, (s + 1) T / split) of the wgmma warpgroup (T = 128). Every rank
+  // stores those fragments of its partial into rank s's slots (part,
+  // [rank][thread][fragment]), the cluster synchronises once, and rank s
+  // adds the slots in rank order, so the sums are bit-identical from run to
+  // run and equal to a sequential rank 0 + 1 + ... Nothing is read from a
+  // peer after the barrier.
   cg::cluster_group cluster = cg::this_cluster();
-  const int per = kProjThreads / p.split;            // threads a rank sums
-  {
+  const int per = kMmaThreads / p.split;             // threads a rank sums
+  if (tid < kMmaThreads) {
     float4* slot = reinterpret_cast<float4*>(
         cluster.map_shared_rank(part, tid / per) +
         (rank * per + tid % per) * (NT / 2));

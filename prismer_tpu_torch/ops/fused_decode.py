@@ -92,8 +92,8 @@ PROJ_MAX_STAGES = 8
 PROJ_MAX_SPLIT = 8
 PROJ_MIN_BLOCKS = 128
 PROJ_MAX_ROWS = 64
-PROJ_SMEM_BUDGET = 113 * 1024
 SM_SMEM = 228 * 1024      # an SM's shared memory, 1 KB of it per block kept
+PROJ_SMEM_BUDGET = (SM_SMEM - 2 * 1024) // 2
 
 
 class DensePlan(NamedTuple):

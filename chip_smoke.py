@@ -397,7 +397,7 @@ def check_beam_update(results):
     rng = np.random.default_rng(SEED)
     entry = results["beam_update"]
     n_cases = 0
-    for b in (8, 5):
+    for b in (8, 5, 16):
         for n_eos, n_neg, n_done in ((0, 0, 0), (3, 2, 0), (5, 4, 1),
                                      (8, 6, 2), (2 * b * 3, 0, b)):
             for index in (4, 11, 19):
@@ -407,23 +407,33 @@ def check_beam_update(results):
                 pen = float(np.float32(index))
                 want = beam_bookkeeping(*gpu, index, pen, **kw)
                 got = beam_update(*gpu, index, pen, **kw)
-                for w, g in zip(want, got):
-                    expect(torch.equal(w, g),
+                again = beam_update(*gpu, index, pen, **kw)
+                for w, g, a in zip(want, got, again):
+                    expect(torch.equal(w, g) and torch.equal(g, a),
                            f"beam_update differs at B={b} index={index}")
                 n_cases += 1
-    gpu = [torch.from_numpy(x).cuda()
-           for x in _beam_case(rng, 8, 3, 20, 3, 2, 1)]
-    entry["ms"] = cuda_ms(lambda: beam_update(
-        *gpu, 10, 10.0, eos_token_id=2, pad_token_id=1), iters=100)
-    entry["plain_ms"] = cuda_ms(lambda: beam_bookkeeping(
-        *gpu, 10, 10.0, eos_token_id=2, pad_token_id=1), iters=100)
-    entry["max_abs_err"] = 0.0
-    outs = beam_update(*gpu, 10, 10.0, eos_token_id=2, pad_token_id=1)
-    set_bound(entry, nbytes(*gpu, *outs), 0.0, torch.float32)
-    log(f"  beam_update: {n_cases} cases at B in (8, 5), K=3, T=20 "
-        f"bit-identical (tol: exact) kernel {entry['ms']:.4f} ms plain "
-        f"{entry['plain_ms']:.4f} ms bound {entry['bound_ms']:.5f} ms "
-        f"(bytes)")
+    log(f"  beam_update: {n_cases} cases at B in (8, 5, 16), K=3, T=20 "
+        f"bit-identical to the plain version and across repeats (tol: "
+        f"exact)")
+    for b in (8, 5, 16):
+        gpu = [torch.from_numpy(x).cuda()
+               for x in _beam_case(rng, b, 3, 20, 3, 2, 1)]
+
+        def kernel():
+            return beam_update(*gpu, 10, 10.0, eos_token_id=2,
+                               pad_token_id=1)
+        events, graph = cuda_ms(kernel, iters=100), graph_ms(kernel, 100)
+        plain = cuda_ms(lambda: beam_bookkeeping(
+            *gpu, 10, 10.0, eos_token_id=2, pad_token_id=1), iters=100)
+        bound = {}
+        set_bound(bound, nbytes(*gpu, *kernel()), 0.0, torch.float32)
+        log(f"    B={b}: kernel graph {graph:.4f} ms, events {events:.4f} "
+            f"ms, plain {plain:.4f} ms, bound {bound['bound_ms']:.6f} ms "
+            f"(bytes)")
+        if b == 8:   # the main path's shape
+            entry.update(bound, ms=graph, events_ms=events, plain_ms=plain,
+                         max_abs_err=0.0)
+    report_ptxas("beam_update", 2)
 
 
 # Prismer-BASE decoder shapes: D, heads, F, cross layers, max length, L
@@ -664,8 +674,12 @@ def check_lm_topk(results):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     entry = results["lm_topk"]
-    for d, batches in ((768, (8, 5, 16)), (1024, (8,))):
+    for d, batches in ((768, (8, 5, 16)), (1024, (8, 16))):
         _check_lm_topk(gen, entry, d, batches)
+    # the bf16 logits kernel's 6 row counts (gated: no spill), the fp32 FMA
+    # kernel's 4 (parity runs only: listed) and the selection's 16 (beams
+    # 1-8, lists of 8 or 16)
+    report_ptxas("lm_topk", 26, ungated=("lm_topk fma_logits",))
 
 
 def _check_lm_topk(gen, entry, d, batches):
@@ -676,7 +690,7 @@ def _check_lm_topk(gen, entry, d, batches):
     v, beams = 50265, 3
     emb32 = torch.randn(v, d, generator=gen, device="cuda") * 0.02
     bias = torch.randn(v, generator=gen, device="cuda") * 0.1
-    for b in batches:            # 16: a second 32-row block, as above
+    for b in batches:            # 16: N 48, the 48-wide wgmma
         n = b * beams
         h32 = torch.randn(n, d, generator=gen, device="cuda")
         alive = torch.randn(b, beams, generator=gen, device="cuda")
@@ -712,17 +726,25 @@ def _check_lm_topk(gen, entry, d, batches):
                        f"lm_topk N={n} {dtype} mask_eos={mask_eos} differs")
                 expect(ties == [1000, 2000, 40000], "lm_topk tie order")
                 entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            if dtype == torch.bfloat16 and b == 8 and d == 768:
-                entry["ms"] = cuda_ms(lambda: lt.lm_topk(
+            if dtype != torch.bfloat16:
+                continue
+
+            def kernel():
+                return lt.lm_topk(h, emb, bb, alive, False, **kw)
+            events, graph = cuda_ms(kernel, iters=20), graph_ms(kernel, 50)
+            bound = {}
+            set_bound(bound, nbytes(h, emb, bb, alive, *kernel()),
+                      2.0 * n * v * d, dtype)
+            log(f"    bf16 N={n} D={d}: kernel graph {graph:.4f} ms "
+                f"({nbytes(emb) / graph / 1e9:.3f} TB/s of embedding), "
+                f"events {events:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                f"({bound['bound_by']})")
+            if b == 8 and d == 768:   # the main path's shape
+                plain = cuda_ms(lambda: lt.lm_topk_reference(
                     h, emb, bb, alive, False, **kw), iters=20)
-                entry["plain_ms"] = cuda_ms(lambda: lt.lm_topk_reference(
-                    h, emb, bb, alive, False, **kw), iters=20)
-                outs = lt.lm_topk(h, emb, bb, alive, False, **kw)
-                set_bound(entry, nbytes(h, emb, bb, alive, *outs),
-                          2.0 * n * v * d, dtype)
-                log(f"    bf16 N={n}: kernel {entry['ms']:.4f} ms plain "
-                    f"{entry['plain_ms']:.4f} ms bound "
-                    f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+                entry.update(bound, ms=graph, events_ms=events,
+                             plain_ms=plain)
+                log(f"    plain {plain:.4f} ms")
 
 
 def _bwd_errors(got, want, fp32: bool):
@@ -876,11 +898,13 @@ def sdpa_backward_ms(q, k, v, dout, packed, h, dh, mask, causal) -> float:
                                                retain_graph=True), iters=10)
 
 
-# `nvcc -Xptxas -v` of the attention kernels' sources, started beside the
-# library build in phase_build and read after check_attention (forward),
-# check_flash_backward (backward) and check_decode_attention (kernels 11-12)
+# `nvcc -Xptxas -v` of the attention, fused-step and decode-tail sources,
+# started beside the library build in phase_build and read after
+# check_attention (forward), check_flash_backward (backward),
+# check_decode_attention (kernels 11-12), check_fused_decode_huge (4),
+# check_beam_update (3) and check_lm_topk (5)
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
-                 "fused_decode")
+                 "fused_decode", "lm_topk", "beam_update")
 # the fused step's kernels other than the bf16 projection (PR 11 left them
 # as they were): their registers and spills are listed, not gated
 FUSED_UNGATED = ("dense_kernel", "self_attn_kernel", "cross_attn_kernel",
@@ -901,10 +925,19 @@ def start_ptxas(stems=PTXAS_SOURCES):
 
 
 def _kernel_name(entry):
-    """A readable name of a mangled kernel entry of the attention and fused
-    decode sources: flash "<kernel> Dh <n>", grouped "<dtype> <mode> KT
-    <n>", fused decode "<kernel> <template arguments>"; else None."""
+    """A readable name of a mangled kernel entry of the attention, fused
+    decode and decode-tail sources: flash "<kernel> Dh <n>", grouped
+    "<dtype> <mode> KT <n>", fused decode "<kernel> <template arguments>",
+    lm_topk "lm_topk <kernel> <arguments>", "beam_update <vector width>";
+    else None."""
     # the kernel's name follows its length in the mangled entry
+    k = re.search(r"\d(fma_logits|logits|select|beam_update)_kernelI(f?)"
+                  r"Li(\d+)E(?:Li(\d+)E)?", entry)
+    if k:
+        args = ", ".join(a for a in ("f32" if k.group(2) else None,
+                                     k.group(3), k.group(4)) if a)
+        prefix = "" if k.group(1) == "beam_update" else "lm_topk "
+        return f"{prefix}{k.group(1)} <{args}>"
     k = re.search(r"\dflash_(\w+?)ILi(\d+)", entry)
     if k:
         return f"{k.group(1)} Dh {k.group(2)}"

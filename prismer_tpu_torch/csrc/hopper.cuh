@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX: TMA tensor loads,
 // mbarriers, ldmatrix, and warpgroup matrix products (wgmma) with their
 // shared-memory descriptors. Used by the flash-attention forward and
-// backward kernels (flash_attention.cu, flash_attention_bwd.cu) and the
-// grouped decode cross-attention (decode_attention.cu); written without
+// backward kernels (flash_attention.cu, flash_attention_bwd.cu), the
+// grouped decode cross-attention (decode_attention.cu), the fused decode
+// step (fused_decode.cu) and the decode loop's tail (lm_topk.cu,
+// beam_update.cu); written without
 // CUTLASS / CuTe so that every build error names a line of this repository.
 //
 // Shared-memory tiles are bf16, 64 columns (128 bytes) per row, in the
@@ -32,6 +34,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace hopper {
 
@@ -137,8 +141,29 @@ cudaError_t grant_smem(K kernel, size_t bytes) {
 }
 
 // ---------------------------------------------------------------------------
-// device: programmatic dependent launch
+// programmatic dependent launch
 // ---------------------------------------------------------------------------
+
+// Launch `kernel` with programmatic stream serialization: it may become
+// resident while the kernel before it on the stream still runs, and waits
+// for it in grid_dep_wait. Such a kernel reads before its wait only what
+// the kernels before it do not write, writes nothing before it, and every
+// one of its blocks executes the wait.
+template <typename... Params, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, int threads,
+                       size_t smem, cudaStream_t st, Args&&... args) {
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+}
 
 // wait until every grid this one was launched after (with the launch
 // attribute cudaLaunchAttributeProgrammaticStreamSerialization) has
@@ -231,6 +256,31 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// an L2 policy that evicts the lines it loads first: for a stream read once
+// (a weight that does not fit the L2), so it does not push out what a
+// later kernel reads again
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// tma_load_4d with an L2 cache policy
+__device__ __forceinline__ void tma_load_4d_hint(void* dst,
+                                                 const CUtensorMap* map,
+                                                 uint64_t* bar, int c0,
+                                                 int c1, int c2, int c3,
+                                                 uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "l"(policy)
       : "memory");
 }
 

@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 
 NEG_INF = -1.0e7  # generation NEG_INF (JAX generation.py:38)
+MAX_BEAMS = 16    # the kernel's K: 2K candidates in one warp's lanes
 
 
 def stable_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -108,31 +109,43 @@ def beam_update(vals: torch.Tensor, beam: torch.Tensor, tok: torch.Tensor,
                                 pad_token_id=pad_token_id)
     from prismer_tpu_torch.ops import _build
 
-    want = [(vals, torch.float32, (b, kk)), (beam, torch.int32, (b, kk)),
+    dev = vals.get_device()
+    for i, (x, dt, shape) in enumerate((
+            (vals, torch.float32, (b, kk)), (beam, torch.int32, (b, kk)),
             (tok, torch.int32, (b, kk)), (alive_seqs, torch.int32, (n, t)),
             (alive_scores, torch.float32, (b, k)),
             (finished_seqs, torch.int32, (n, t)),
-            (finished_scores, torch.float32, (b, k))]
-    for i, (x, dt, shape) in enumerate(want):
-        if (not x.is_cuda or x.dtype != dt or tuple(x.shape) != shape
+            (finished_scores, torch.float32, (b, k)))):
+        if (x.dtype != dt or x.get_device() != dev or x.shape != shape
                 or not x.is_contiguous()):
             raise ValueError(f"beam_update: input {i} is {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}; kernel takes "
                              f"contiguous CUDA {dt} {shape}")
-    dev = vals.device
-    out = (torch.empty((n, t), dtype=torch.int32, device=dev),
-           torch.empty((b, k), dtype=torch.float32, device=dev),
-           torch.empty((n, t), dtype=torch.int32, device=dev),
-           torch.empty((b, k), dtype=torch.float32, device=dev),
-           torch.empty((b, k), dtype=torch.int32, device=dev),
-           torch.empty((b, k), dtype=torch.int32, device=dev))
+    if k > MAX_BEAMS:
+        raise ValueError(f"beam_update: kernel takes K <= {MAX_BEAMS}, got "
+                         f"{k}")
+    # one allocation for the six outputs, each 16-byte aligned (the fused
+    # step takes the flat beams so; the sequences when T % 4 == 0): the four
+    # (B, K) rows, each padded to 4 words, then the two (N, T) blocks; the
+    # scores are fp32 views of their int32 words
+    bk4 = -(-b * k // 4) * 4
+    buf = torch.empty(4 * bk4 + 2 * n * t, dtype=torch.int32,
+                      device=vals.device)
+    flat, new_tok, ascore, fscore = buf.as_strided((4, b, k),
+                                                   (bk4, k, 1)).unbind(0)
+    aseq, fseq = buf.as_strided((2, n, t), (n * t, t, 1), 4 * bk4).unbind(0)
+    ascore, fscore = ascore.view(torch.float32), fscore.view(torch.float32)
     err = _build.kernels().prismer_beam_update(
-        *(x.data_ptr() for x, _, _ in want), *(o.data_ptr() for o in out),
-        b, k, t, index, pen, eos_token_id, pad_token_id,
-        torch.cuda.current_stream(dev).cuda_stream)
+        vals.data_ptr(), beam.data_ptr(), tok.data_ptr(),
+        alive_seqs.data_ptr(), alive_scores.data_ptr(),
+        finished_seqs.data_ptr(), finished_scores.data_ptr(),
+        aseq.data_ptr(), ascore.data_ptr(), fseq.data_ptr(),
+        fscore.data_ptr(), new_tok.data_ptr(), flat.data_ptr(), b, k, t,
+        index, pen, eos_token_id, pad_token_id,
+        torch._C._cuda_getCurrentRawStream(dev))
     _build.check(err, "beam_update")
     beam_update.launches += 1
-    return out
+    return aseq, ascore, fseq, fscore, new_tok, flat
 
 
 beam_update.launches = 0

@@ -57,6 +57,13 @@ K/V views, and timed twice: L2-warm (one input set, replayed) and L2-cold
 reads another layer's cache on every call); its `kernels` entries carry the
 cold times.
 
+The multi-scale deformable attention (kernel 10) is held to its plain
+version at the pixel decoder's shapes at N 16, 5 and 1 on two families of
+sampling locations, uniform over [-0.15, 1.15] and shaped as Mask2Former's
+(`deform_case`), and at the odd shapes of its launch plan
+(`DEFORM_EDGES`); its entry's `ms` is the N 16 uniform time, `ms_local`
+the Mask2Former-shaped one.
+
 Every kernel's entry in the `kernels` line carries `bound_ms`, the least
 time the card could take for the timed call: the larger of its bytes (each
 input read once, each output written once) over 3.35 TB/s and its
@@ -898,13 +905,15 @@ def sdpa_backward_ms(q, k, v, dout, packed, h, dh, mask, causal) -> float:
                                                retain_graph=True), iters=10)
 
 
-# `nvcc -Xptxas -v` of the attention, fused-step and decode-tail sources,
-# started beside the library build in phase_build and read after
-# check_attention (forward), check_flash_backward (backward),
-# check_decode_attention (kernels 11-12), check_fused_decode_huge (4),
-# check_beam_update (3), check_lm_topk (5) and check_fused_ce (8-9)
+# `nvcc -Xptxas -v` of the attention, fused-step, decode-tail, fused CE and
+# deformable-attention sources, started beside the library build in
+# phase_build and read after check_attention (forward),
+# check_flash_backward (backward), check_decode_attention (kernels 11-12),
+# check_fused_decode_huge (4), check_beam_update (3), check_lm_topk (5),
+# check_fused_ce (8-9) and check_ms_deform_attn (10)
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
-                 "fused_decode", "lm_topk", "beam_update", "fused_ce")
+                 "fused_decode", "lm_topk", "beam_update", "fused_ce",
+                 "ms_deform_attn")
 # the fused step's kernels other than the bf16 projection (PR 11 left them
 # as they were): their registers and spills are listed, not gated
 FUSED_UNGATED = ("dense_kernel", "self_attn_kernel", "cross_attn_kernel",
@@ -926,10 +935,16 @@ def start_ptxas(stems=PTXAS_SOURCES):
 
 def _kernel_name(entry):
     """A readable name of a mangled kernel entry of the attention, fused
-    decode, decode-tail and fused CE sources: flash "<kernel> Dh <n>",
-    grouped "<dtype> <mode> KT <n>", fused decode "<kernel> <template
-    arguments>", lm_topk "lm_topk <kernel> <arguments>", "beam_update
-    <vector width>", fused CE "<kernel> <arguments>"; else None."""
+    decode, decode-tail, fused CE and deformable-attention sources: flash
+    "<kernel> Dh <n>", grouped "<dtype> <mode> KT <n>", fused decode
+    "<kernel> <template arguments>", lm_topk "lm_topk <kernel>
+    <arguments>", "beam_update <vector width>", fused CE "<kernel>
+    <arguments>", "ms_deform_attn_kernel <V, L, P, staged>"; else None."""
+    k = re.search(r"\dms_deform_attn_kernelI((?:Lin?\d+E)+)E", entry)
+    if k:
+        args = [a.replace("n", "-")
+                for a in re.findall(r"Li(n?\d+)E", k.group(1))]
+        return f"ms_deform_attn_kernel <{', '.join(args)}>"
     k = re.search(r"\d(ce_[a-z_]+_kernel)(?:I((?:Li\d+E|Lb[01]E|f|"
                   r"13__nv_bfloat16)+)E)?", entry)
     if k:
@@ -2606,51 +2621,139 @@ SEG_SIZES = ((640, 480), (500, 375), (480, 640), (427, 640), (640, 427),
 _SEG = {}
 
 
+DEFORM_FAMILIES = ("uniform", "local")
+DEFORM_JITTER = 2.0      # pixels of the sampled level, one standard deviation
+
+
+def deform_case(gen, n: int, family: str):
+    """Kernel 10's inputs at the pixel decoder's shapes (Lq = S), made on
+    the card from `gen`: value ~ N(0, 1), attention weights a softmax over
+    the L * P points, and sampling locations of one of two families.
+    "uniform": drawn from [-0.15, 1.15], so that corners fall outside the
+    maps and the samples have no locality. "local" (Mask2Former-shaped):
+    each query's own reference point (its pixel centre on its level's grid,
+    as the encoder gives it), plus Deformable DETR's grid-initialised
+    offsets (head h's direction (cos 2 pi h / H, sin 2 pi h / H) scaled to
+    the unit square's edge, times p + 1 pixels of level l), plus
+    N(0, DEFORM_JITTER^2)-pixel jitter, divided by (W_l, H_l)."""
+    import torch
+    from prismer_tpu_torch.experts.segmentation.mask2former import \
+        encoder_reference_points
+
+    s = sum(h * w for h, w in SEG_LEVELS)
+    nl, hd, d, p = len(SEG_LEVELS), SEG_HEADS, SEG_DIM, SEG_POINTS
+    value = torch.randn(n, s, hd, d, generator=gen, device="cuda")
+    if family == "uniform":
+        loc = torch.rand(n, s, hd, nl, p, 2, generator=gen,
+                         device="cuda") * 1.3 - 0.15
+    else:
+        ref = torch.from_numpy(encoder_reference_points(SEG_LEVELS)).cuda()
+        theta = torch.arange(hd, device="cuda") * (2.0 * math.pi / hd)
+        grid = torch.stack([theta.cos(), theta.sin()], -1)
+        grid = grid / grid.abs().max(-1, keepdim=True).values
+        steps = torch.arange(1, p + 1, device="cuda", dtype=torch.float32)
+        pixels = (grid[:, None, :] * steps[None, :, None])[:, None]
+        pixels = pixels + DEFORM_JITTER * torch.randn(
+            n, s, hd, nl, p, 2, generator=gen, device="cuda")
+        norm = torch.tensor([[w, h] for h, w in SEG_LEVELS],
+                            dtype=torch.float32, device="cuda")
+        loc = (ref[None, :, None, :, None, :]
+               + pixels / norm[None, None, None, :, None, :]).contiguous()
+    w = torch.softmax(torch.randn(n, s, hd, nl * p, generator=gen,
+                                  device="cuda"), -1).reshape(n, s, hd, nl, p)
+    return value, loc, w
+
+
+# kernel 10's other shapes, held to the plain version (not timed): (N,
+# levels, Lq, H, D, P): the CPU tests' small levels (every level staged),
+# a D that is not a multiple of 4 (scalar lanes, nothing staged), a level
+# too large to stage beside a staged one, P 3 (the run-time point loop),
+# and one query (nothing staged: the run-time loop on float4 lanes)
+DEFORM_EDGES = ((2, ((12, 16), (6, 8), (3, 4)), 37, 4, 8, 4),
+                (2, ((12, 16), (6, 8), (3, 4)), 40, 4, 6, 4),
+                (2, ((100, 100), (30, 30)), 10900, 8, 32, 4),
+                (3, ((15, 15), (30, 30), (60, 60)), 4725, 8, 32, 3),
+                (1, ((15, 15), (30, 30), (60, 60)), 1, 8, 32, 4))
+# ms_deform_attn.cu's instantiations: <4, 3, 4, 3>, <4, 0, 0, -1>,
+# <1, 0, 0, -1>
+DEFORM_KERNELS = 3
+
+
 def check_ms_deform_attn(results):
     """Kernel 10 against its plain version at the pixel decoder's shapes,
-    N = 16 (the generator's batch) and 1, locations drawn from
-    [-0.15, 1.15] so that corners fall outside the maps; two launches
-    bit-identical."""
+    N = 16 (the generator's batch), 5 (its last batch of 37 images) and 1,
+    on both location families of `deform_case` ("uniform" over
+    [-0.15, 1.15], so that corners fall outside the maps; "local", shaped
+    as Mask2Former's); two launches bit-identical, every value finite;
+    then at DEFORM_EDGES; then ptxas -v (fails on a spill). The entry's
+    `ms` is the N 16 uniform time (CUDA events), `ms_local` the local
+    one; graph replays beside them in the log."""
     import torch
     from prismer_tpu_torch.experts.ops.deform_attn import (
-        ms_deform_attn, ms_deform_attn_reference)
+        deform_plan, ms_deform_attn, ms_deform_attn_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     entry = results["ms_deform_attn"]
     s = sum(h * w for h, w in SEG_LEVELS)
     nl, hd, d, p = len(SEG_LEVELS), SEG_HEADS, SEG_DIM, SEG_POINTS
-    for n in (SEG_BATCH, 1):
-        value = torch.randn(n, s, hd, d, generator=gen, device="cuda")
-        loc = torch.rand(n, s, hd, nl, p, 2, generator=gen,
-                         device="cuda") * 1.3 - 0.15
-        w = torch.softmax(torch.randn(n, s, hd, nl * p, generator=gen,
-                                      device="cuda"), -1).reshape(
-            n, s, hd, nl, p)
-        args = (value, SEG_LEVELS, loc, w)
+
+    def held(args, who):
         got, again = ms_deform_attn(*args), ms_deform_attn(*args)
         want = ms_deform_attn_reference(*args)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         repeat = torch.equal(got, again)
         finite = bool(torch.isfinite(got).all())
-        outside = ((loc < 0) | (loc > 1)).any(-1).float().mean().item()
-        ms = cuda_ms(lambda: ms_deform_attn(*args), iters=20)
-        plain = cuda_ms(lambda: ms_deform_attn_reference(*args), iters=5)
-        bound = {}
-        set_bound(bound, nbytes(value, loc, w, got),
-                  2.0 * n * s * hd * nl * p * 4 * d, torch.float32)
-        log(f"  ms_deform_attn N={n} S=Lq={s} H={hd} D={d} L={nl} P={p} "
-            f"fp32 ({outside:.2f} of the points outside [0, 1]): max|err| "
-            f"{err:.3g} (tol {TOL_FP32}), repeat bit-identical {repeat}, "
-            f"finite {finite}; kernel {ms:.4f} ms plain {plain:.4f} ms bound "
-            f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
         expect(err <= TOL_FP32 and repeat and finite,
-               f"ms_deform_attn N={n} out of tolerance")
+               f"ms_deform_attn {who}: max|err| {err:.3g}, repeat {repeat}, "
+               f"finite {finite}")
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        if n == SEG_BATCH:
-            entry.update(ms=ms, plain_ms=plain, **bound)
-        del value, loc, w, got, again, want
+        return got, err, repeat, finite
+
+    for n in (SEG_BATCH, 5, 1):
+        plan = deform_plan(SEG_LEVELS, n, s, hd, d, p)
+        for family in DEFORM_FAMILIES:
+            value, loc, w = deform_case(gen, n, family)
+            args = (value, SEG_LEVELS, loc, w)
+            got, err, repeat, finite = held(args, f"N={n} {family}")
+            outside = ((loc < 0) | (loc > 1)).any(-1).float().mean().item()
+            ms = cuda_ms(lambda: ms_deform_attn(*args), iters=20)
+            graph = graph_ms(lambda: ms_deform_attn(*args), iters=20)
+            plain = cuda_ms(lambda: ms_deform_attn_reference(*args), iters=3)
+            bound = {}
+            set_bound(bound, nbytes(value, loc, w, got),
+                      2.0 * n * s * hd * nl * p * 4 * d, torch.float32)
+            log(f"  ms_deform_attn N={n} S=Lq={s} H={hd} D={d} L={nl} P={p} "
+                f"fp32, {family} ({outside:.2f} of the points outside "
+                f"[0, 1]; {plan['blocks']} blocks, levels {plan['staged']} "
+                f"staged): max|err| {err:.3g} (tol {TOL_FP32}), repeat "
+                f"bit-identical {repeat}, finite {finite}; kernel {ms:.4f} "
+                f"ms events, {graph:.4f} graph; plain {plain:.4f} ms; bound "
+                f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+            if n == SEG_BATCH and family == "uniform":
+                entry.update(ms=ms, plain_ms=plain, **bound)
+            elif n == SEG_BATCH:
+                entry.update(ms_local=ms)
+            del value, loc, w, got
+    for n, shapes, lq, heads, dim, pts in DEFORM_EDGES:
+        rows = sum(h * w for h, w in shapes)
+        value = torch.randn(n, rows, heads, dim, generator=gen,
+                            device="cuda")
+        loc = torch.rand(n, lq, heads, len(shapes), pts, 2, generator=gen,
+                         device="cuda") * 1.3 - 0.15
+        w = torch.softmax(torch.randn(n, lq, heads, len(shapes) * pts,
+                                      generator=gen, device="cuda"),
+                          -1).reshape(n, lq, heads, len(shapes), pts)
+        plan = deform_plan(shapes, n, lq, heads, dim, pts)
+        _, err, _, _ = held((value, shapes, loc, w),
+                            f"N={n} {shapes} Lq={lq} D={dim} P={pts}")
+        log(f"  ms_deform_attn N={n} levels {shapes} Lq={lq} H={heads} "
+            f"D={dim} P={pts} (vec {plan['vec']}, levels {plan['staged']} "
+            f"staged, {plan['chunks']} chunks): max|err| {err:.3g}, repeat "
+            f"bit-identical")
+        del value, loc, w
     torch.cuda.empty_cache()
+    report_ptxas("ms_deform_attn", DEFORM_KERNELS)
 
 
 def seg_image(rng, size):

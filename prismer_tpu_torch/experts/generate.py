@@ -10,7 +10,7 @@ device in fp32 (TF32 off for the run), and writes one grey id PNG per image at t
 under S/<task>/<parent>/<folder>/: the per-pixel argmax of the semantic
 logits (ties to the lowest class id), resized with PIL's NEAREST rule.
 Images are read with `data.png`; JPEG decoding on the machine with the card
-is still to be ported (ROADMAP item 10), so a .jpg raises. The files are
+is still to be ported (ROADMAP §1 item 5), so a .jpg raises. The files are
 sharded by --shard_id / --num_shards as the reference shards its processes.
 It runs on the CUDA device unless --device cpu is given, and refuses to
 start when there is no CUDA device and the CPU was not asked for.
@@ -57,7 +57,7 @@ def read_image(path: str) -> np.ndarray:
     if not path.lower().endswith(".png"):
         raise NotImplementedError(
             f"{path}: only PNG images are read here; JPEG decoding on the "
-            f"machine with the card is ROADMAP item 10")
+            f"machine with the card is ROADMAP §1 item 5")
     return read_png(path)
 
 
@@ -127,7 +127,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.task not in ("seg_coco", "seg_ade"):
         raise NotImplementedError(
             f"--task {args.task} is not ported to prismer_tpu_torch yet "
-            f"(ROADMAP item 10, the other label experts)")
+            f"(ROADMAP §1 item 8, the other label experts)")
     # the experts compute in fp32, as the JAX package does: cuDNN would
     # otherwise run the convolutions in TF32 (torch's default). The flags
     # are process-wide, so they are restored when the run ends.

@@ -8,7 +8,7 @@ weights from a fixed seed (with a loud warning) when it is not; and a
 host-side callable uint8 (H, W[, C]) image -> (S, S, 3) float32 array that
 resizes as PIL's BILINEAR does and applies the detectron2 pixel statistics.
 The other experts raise NotImplementedError until the port carries them
-(ROADMAP item 10).
+(ROADMAP §1 item 8).
 
 Checkpoints are searched under PRISMER_EXPERT_WEIGHTS (default
 'experts/expert_weights') by the reference's file names.
@@ -162,5 +162,5 @@ def load_expert_model(task: str, image_size: int = 480,
     if task in WEIGHTS:
         raise NotImplementedError(
             f"expert '{task}' is not ported to prismer_tpu_torch yet "
-            f"(ROADMAP item 10, the other label experts)")
+            f"(ROADMAP §1 item 8, the other label experts)")
     raise ValueError(f"unknown expert task: {task}")

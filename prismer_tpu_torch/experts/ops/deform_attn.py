@@ -17,15 +17,87 @@ Bilinear sampling is torch grid_sample(mode='bilinear', padding_mode='zeros',
 align_corners=False): src = loc * size - 0.5, and a corner outside the level
 adds nothing. `ms_deform_attn` launches the kernel for CUDA tensors and
 computes `ms_deform_attn_reference` only for tensors on the CPU; launches
-are counted in `ms_deform_attn.launches`.
+are counted in `ms_deform_attn.launches`. `deform_plan` is the kernel's
+launch plan (levels staged in shared memory, query chunks), computed as the
+C entry computes it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+import math
+from typing import Dict, List, Sequence, Tuple
 
 import torch
+
+H100_SMS = 132
+# csrc/ms_deform_attn.cu's constants (keep the two in step): warps a
+# block, a TMA box's largest extent, the shared memory staged levels may
+# take, queries a chunk is cut at below, and the bytes of a block's corner
+# tables (16 points of 32 bytes for each of its 4 x WARPS queries in
+# flight)
+WARPS = 16
+BOX_ROWS = 256
+STAGE_BYTES = 160 * 1024
+MIN_QUERIES = 2 * WARPS
+TABLE_BYTES = WARPS * 64 * 32
+
+
+def deform_plan(shapes: Sequence[Tuple[int, int]], n: int, lq: int,
+                heads: int, d: int, points: int, sms: int = H100_SMS,
+                aligned: bool = True) -> Dict:
+    """The kernel's launch plan, as `make_plan` in csrc/ms_deform_attn.cu
+    computes it (keep the two in step).
+
+    * "vec": floats a lane loads per value row, 4 (float4 lanes; D a
+      multiple of 4 and value 16-byte aligned) or 1 (scalar lanes);
+    * "chunks" of "per" queries each (n, h) is cut into, one block each
+      ("blocks"): about one block an SM, and at most one chunk for every
+      MIN_QUERIES queries;
+    * "staged": the levels held whole in shared memory, smallest first,
+      when D rows can be TMA boxes (float4 lanes, D <= 256), the level's
+      rows are no more than a chunk's gathers of it (4 corners x P points
+      a query) and the budget STAGE_BYTES holds them; each in "boxes" TMA
+      boxes of "box_rows" rows (a multiple that keeps every box 128-byte
+      aligned) from shared row "srow";
+    * "smem": a block's dynamic shared memory: the corner tables
+      (TABLE_BYTES), the staged rows and 128 bytes of alignment slack.
+
+    Block b takes (n, h, chunk) = (b // (chunks * heads), b // chunks %
+    heads, b % chunks), and in it queries chunk * per ... in index order.
+    """
+    rows = [hl * wl for hl, wl in shapes]
+    nl = len(shapes)
+    vec = 4 if d % 4 == 0 and aligned else 1
+    most = -(-lq // MIN_QUERIES)
+    chunks = max(1, min(sms // max(n * heads, 1), most))
+    per = -(-lq // chunks)
+    chunks = -(-lq // per)
+    staged: List[int] = []
+    srow, box_rows, boxes = [-1] * nl, [0] * nl, [0] * nl
+    used = 0
+    if vec == 4 and d <= BOX_ROWS:
+        row_bytes = d * 4
+        m = 128 // math.gcd(128, row_bytes)
+        for lvl in sorted(range(nl), key=lambda i: (rows[i], i)):
+            if rows[lvl] > 4 * points * per:
+                continue
+            nb = -(-rows[lvl] // BOX_ROWS)
+            br = -(-rows[lvl] // nb)
+            br = -(-br // m) * m
+            if used + nb * br * row_bytes > STAGE_BYTES:
+                continue
+            staged.append(lvl)
+            srow[lvl], box_rows[lvl], boxes[lvl] = used // row_bytes, br, nb
+            used += nb * br * row_bytes
+    return {
+        "vec": vec, "chunks": chunks, "per": per,
+        "blocks": n * heads * chunks,
+        "staged": sorted(staged), "srow": srow, "box_rows": box_rows,
+        "boxes": boxes, "stage_rows": used // (d * 4),
+        "smem": TABLE_BYTES + used + 128,
+    }
 
 
 def _bilinear_sample_zero_pad(value_l: torch.Tensor, x: torch.Tensor,
@@ -81,6 +153,23 @@ def ms_deform_attn_reference(value: torch.Tensor,
     return out.reshape(n, lq, h * d)
 
 
+@functools.lru_cache(maxsize=256)
+def _launch_args(shapes: Tuple[Tuple[int, int], ...], n: int, lq: int,
+                 heads: int, d: int, points: int, sms: int, aligned: bool):
+    """The C entry's level shapes and plan arguments (chunks, staged levels
+    as bits, shared memory), kept per call shape: a call at one image is
+    short enough that the host's work shows beside it."""
+    plan = deform_plan(shapes, n, lq, heads, d, points, sms, aligned)
+    flat = [v for hw in shapes for v in hw]
+    return ((ctypes.c_int * len(flat))(*flat), plan["chunks"],
+            sum(1 << lvl for lvl in plan["staged"]), plan["smem"])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def ms_deform_attn(value: torch.Tensor,
                    spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations: torch.Tensor,
@@ -121,12 +210,14 @@ def ms_deform_attn(value: torch.Tensor,
                              f"takes contiguous tensors on {value.device}")
     out = torch.empty((n, lq, h * d), dtype=torch.float32,
                       device=value.device)
-    flat = [v for hw in shapes for v in hw]
-    c_shapes = (ctypes.c_int * len(flat))(*flat)
+    c_shapes, chunks, staged, smem = _launch_args(
+        tuple(shapes), n, lq, h, d, p, _sm_count(value.device),
+        value.data_ptr() % 16 == 0)
     err = _build.kernels().prismer_ms_deform_attn(
         value.data_ptr(), sampling_locations.data_ptr(),
         attention_weights.data_ptr(), out.data_ptr(), c_shapes, n, s, lq, h,
-        d, nl, p, torch.cuda.current_stream(value.device).cuda_stream)
+        d, nl, p, chunks, staged, smem,
+        torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "ms_deform_attn")
     ms_deform_attn.launches += 1
     return out

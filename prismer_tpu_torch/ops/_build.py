@@ -120,7 +120,7 @@ def kernels() -> ctypes.CDLL:
     lib.prismer_ce_stats.restype = _I
     lib.prismer_ce_grads.argtypes = [_P] * 10 + [_I] * 5 + [_F, _F, _I, _P]
     lib.prismer_ce_grads.restype = _I
-    lib.prismer_ms_deform_attn.argtypes = [_P] * 5 + [_I] * 7 + [_P]
+    lib.prismer_ms_deform_attn.argtypes = [_P] * 5 + [_I] * 10 + [_P]
     lib.prismer_ms_deform_attn.restype = _I
     lib.prismer_layer_norm.argtypes = [_P] * 4 + [_I] * 2 + [_F, _I, _P]
     lib.prismer_layer_norm.restype = _I

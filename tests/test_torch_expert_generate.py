@@ -269,9 +269,9 @@ def test_main_refuses_the_card_when_there_is_none(monkeypatch, tmp_path):
     with pytest.raises(SystemExit):
         port_generate.main(["--task", "seg_coco", "--data_path",
                             str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
         port_generate.main(["--task", "depth", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
         port_bank.load_expert_model("depth", 64, "cpu")
 
 

@@ -57,6 +57,15 @@ K/V views, and timed twice: L2-warm (one input set, replayed) and L2-cold
 reads another layer's cache on every call); its `kernels` entries carry the
 cold times.
 
+The encoder's fused LayerNorm kernels (14 `ln_proj`, 15 `adaptor_fused`)
+are held to their plain versions at Prismer-BASE, LARGE and HUGE's widths
+at batch 8 (`LN_SHAPES`), at ragged row counts (`LN_RAGGED`) and at output
+widths no TMA store takes (`LN_ODD`), fp32 and bf16, repeats bit-identical;
+bf16 is timed by graph replay and events beside the plain version and the
+composition the model runs with the flag off (their `library_ms`, marked
+a yardstick), and ptxas fails the run on a spill in a bf16 kernel or a
+product kernel without HGMMA in its SASS.
+
 The multi-scale deformable attention (kernel 10) is held to its plain
 version at the pixel decoder's shapes at N 16, 5 and 1 on two families of
 sampling locations, uniform over [-0.15, 1.15] and shaped as Mask2Former's
@@ -910,10 +919,11 @@ def sdpa_backward_ms(q, k, v, dout, packed, h, dh, mask, causal) -> float:
 # phase_build and read after check_attention (forward),
 # check_flash_backward (backward), check_decode_attention (kernels 11-12),
 # check_fused_decode_huge (4), check_beam_update (3), check_lm_topk (5),
-# check_fused_ce (8-9) and check_ms_deform_attn (10)
+# check_fused_ce (8-9), check_ms_deform_attn (10) and check_adaptor_fused
+# (14-15)
 PTXAS_SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
                  "fused_decode", "lm_topk", "beam_update", "fused_ce",
-                 "ms_deform_attn")
+                 "ms_deform_attn", "ln_proj")
 # the fused step's kernels other than the bf16 projection (PR 11 left them
 # as they were): their registers and spills are listed, not gated
 FUSED_UNGATED = ("dense_kernel", "self_attn_kernel", "cross_attn_kernel",
@@ -939,7 +949,13 @@ def _kernel_name(entry):
     "<kernel> Dh <n>", grouped "<dtype> <mode> KT <n>", fused decode
     "<kernel> <template arguments>", lm_topk "lm_topk <kernel>
     <arguments>", "beam_update <vector width>", fused CE "<kernel>
-    <arguments>", "ms_deform_attn_kernel <V, L, P, staged>"; else None."""
+    <arguments>", "ms_deform_attn_kernel <V, L, P, staged>", the encoder
+    LayerNorm kernels by name ("ln_proj_kernel", "adaptor_f32_kernel",
+    "row_stats_kernel", ...); else None."""
+    k = re.search(r"\d((?:ln_proj|adaptor)(?:_f32)?_kernel|row_stats_kernel)"
+                  r"E", entry)
+    if k:
+        return k.group(1)
     k = re.search(r"\dms_deform_attn_kernelI((?:Lin?\d+E)+)E", entry)
     if k:
         args = [a.replace("n", "-")
@@ -981,17 +997,39 @@ def _kernel_name(entry):
     return None
 
 
-def report_ptxas(stem, n_kernels, ungated=()):
+def sass_ops(obj, op: str):
+    """{kernel entry: count of SASS instructions whose opcode starts with
+    `op`} of an object file (`cuobjdump -sass`)."""
+    from prismer_tpu_torch.ops import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    res = subprocess.run([str(tool), "-sass", str(obj)], capture_output=True,
+                         text=True, timeout=300)
+    expect(res.returncode == 0, f"cuobjdump -sass failed: {res.stderr[-500:]}")
+    counts = {}
+    for block in res.stdout.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        counts[name] = len(re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                                      + op, block))
+    return counts
+
+
+def report_ptxas(stem, n_kernels, ungated=(), hgmma=()):
     """Registers and spills of every kernel instantiation in csrc/<stem>.cu
     (ptxas -v, its full text written to the output directory as
     ptxas_<stem>.txt); fails on
     a listing of other than n_kernels instantiations and on any spill,
     except in the kernels whose names start with one of `ungated` (listed
-    with their spills, not failed)."""
+    with their spills, not failed), and if a kernel named in `hgmma` has no
+    HGMMA (wgmma) instruction in its SASS."""
     if stem not in _PTXAS:
         start_ptxas((stem,))
     obj, proc = _PTXAS.pop(stem)
     _, err = proc.communicate()
+    if hgmma and proc.returncode == 0:
+        counts = {_kernel_name(k): n for k, n in sass_ops(obj, "HGMMA").items()}
+        for name in hgmma:
+            log(f"    SASS {name}: {counts.get(name, 0)} HGMMA")
+            expect(counts.get(name, 0) > 0, f"{name} has no HGMMA in its SASS")
     obj.unlink(missing_ok=True)
     expect(proc.returncode == 0, f"nvcc -Xptxas -v {stem}.cu failed: "
            f"{err[-2000:]}")
@@ -1202,6 +1240,71 @@ def _grad_check(name, kernel_fn, plain_fn, leaves):
     expect(max(errs) <= TOL_FP32, f"{name} fp32 gradient out of tolerance")
 
 
+# kernels 14-15's model shapes, (label, R at batch 8, D): Prismer-BASE,
+# LARGE (ViT-L/14 at 336 px, 640 tokens) and HUGE (ViT-H/14 at 480 px, 1220
+# tokens); then ragged R at BASE's width: one image, batch 5, a short edge
+LN_SHAPES = (("BASE", ENC_ROWS, ENC_DIM), ("LARGE", 8 * 640, 1024),
+             ("HUGE", 8 * 1220, 1280))
+LN_RAGGED = (964, 5 * 964, 17)
+
+
+def ln_proj_case(gen, r: int, d: int):
+    """fp32 inputs of kernels 14-15 on the card: encoder-like rows and the
+    LN affine (`_ln_case`), then (weight, bias) pairs: q/k/v 3 x (D, D),
+    c_fc (4D, D), the adaptor's down and up (D, D)."""
+    x, scale, bias = _ln_case(gen, r, d)
+    return {"x": x, "scale": scale, "bias": bias,
+            "qkv": [_dense(gen, d, d) for _ in range(3)],
+            "fc": [_dense(gen, 4 * d, d)],
+            "adaptor": [_dense(gen, d, d), _dense(gen, d, d)]}
+
+
+def ln_proj_calls(case, dtype, ln_proj, adaptor_fused):
+    """{label: (kernel, plain, flag_off, flops, bytes)} for kernels 14-15 on
+    `case` in `dtype`: "q/k/v", "c_fc" (+ quick_gelu) and "adaptor" through
+    the given wrappers (the port's, or an older source's in the A/B tools),
+    their plain versions, and the composition the model runs with
+    set_ln_proj off (`fp32_layer_norm`, then `F.linear` per output and the
+    activation, or the adaptor's `_proj` and the residual): the yardstick
+    recorded as `library_ms`, since no single PyTorch call computes LN
+    followed by projections. `bytes` counts each input once and each output
+    once."""
+    import torch.nn.functional as F
+    from prismer_tpu_torch.models.layers import quick_gelu, squared_relu
+    from prismer_tpu_torch.ops import ln_proj as lp
+    from prismer_tpu_torch.ops.layer_norm import fp32_layer_norm
+
+    x = case["x"].to(dtype)
+    scale, bias = case["scale"], case["bias"]
+    r, d = x.shape
+    p = {k: [(w.to(dtype), b.to(dtype)) for w, b in case[k]]
+         for k in ("qkv", "fc", "adaptor")}
+    calls = {}
+    for label, act in (("q/k/v", None), ("c_fc", "quick_gelu")):
+        ws, bs = zip(*p["qkv" if act is None else "fc"])
+        fs = sum(w.shape[0] for w in ws)
+
+        def off(ws=ws, bs=bs, act=act):
+            y = fp32_layer_norm(x, scale, bias)
+            outs = [F.linear(y, w, b) for w, b in zip(ws, bs)]
+            return outs if act is None else [quick_gelu(o) for o in outs]
+        calls[label] = (
+            lambda ws=ws, bs=bs, act=act: ln_proj(x, scale, bias, ws, bs,
+                                                  act),
+            lambda ws=ws, bs=bs, act=act: lp.ln_proj_reference(
+                x, scale, bias, ws, bs, act),
+            off, 2.0 * r * d * fs,
+            nbytes(x, scale, bias, *ws, *bs) + r * fs * x.element_size())
+    (wd, bd), (wu, bu) = p["adaptor"]
+    args = (x, scale, bias, wd, bd, wu, bu)
+    calls["adaptor"] = (
+        lambda: adaptor_fused(*args), lambda: lp.adaptor_reference(*args),
+        lambda: F.linear(squared_relu(F.linear(fp32_layer_norm(
+            x, scale, bias), wd, bd)), wu, bu) + x,
+        4.0 * r * d * d, nbytes(*args) + nbytes(x))
+    return calls
+
+
 def check_layer_norm(results):
     """Kernel 13 against its plain version at the encoder's LayerNorm
     shapes (R = 8 x 964, D = 768; HUGE's R = 8 x 1220, D = 1280), fp32 and
@@ -1253,117 +1356,138 @@ def _check_layer_norm(results, rows, dim):
     torch.cuda.empty_cache()
 
 
-def check_ln_proj(results):
-    """Kernel 14 against its plain version at the encoder block's shapes,
-    R = 8 x 964, D = 768 (and HUGE's R = 8 x 1220, D = 1280): q/k/v
-    (3 x D) and c_fc (4 D) + quick_gelu, fp32 and bf16; two launches
-    bit-identical; the Function's fp32 gradient."""
-    for rows, dim in ENC_SHAPES:
-        _check_ln_proj(results, rows, dim)
+# ln_proj.cu's kernels: the bf16 row statistics, ln_proj and adaptor
+# kernels (gated on spills and on HGMMA in their SASS) and the fp32 FMA
+# kernels (listed, not gated)
+LN_KERNELS = 5
+LN_UNGATED = ("ln_proj_f32_kernel", "adaptor_f32_kernel")
+LN_HGMMA = ("ln_proj_kernel", "adaptor_kernel")
+# widths that no TMA store takes: q/k/v-like outputs of 200 and 77 columns
+# at D 192 (neither a multiple of 128), written by plain stores
+LN_ODD = (300, 192, (200, 77))
 
 
-def _check_ln_proj(results, r, d):
+def _outs(o):
+    return o if isinstance(o, (tuple, list)) else (o,)
+
+
+def _check_ln_call(name, fn, call, x, label, timed, fp32):
+    """One of `ln_proj_calls`' entries against its plain version: errors,
+    two launches bit-identical, finite; timed: graph and events ms of the
+    kernel, graph ms of the plain version and of the flag-off composition,
+    the bound. Returns the record."""
+    import torch
+    kernel, plain, off, flops, n_bytes = call
+    got, again, want = _outs(kernel()), _outs(kernel()), _outs(plain())
+    torch.cuda.synchronize()
+    errs = [_ln_errors(g, w, name, fp32, x.double().abs() + w.double().abs()
+                       if name == "adaptor_fused" else None)
+            for g, w in zip(got, want)]
+    rec = {"fn": fn, "shape": label, "max_abs_err": max(e for e, _ in errs),
+           "ok": all(o for _, o in errs),
+           "repeat": all(torch.equal(g, a) for g, a in zip(got, again)),
+           "finite": all(bool(torch.isfinite(g.float()).all()) for g in got)}
+    del got, again, want
+    msg = (f"  {name} {fn} {label} {str(x.dtype)[6:]}: max|err| "
+           f"{rec['max_abs_err']:.3g}, within tolerance {rec['ok']}, repeat "
+           f"bit-identical {rec['repeat']}, finite {rec['finite']}")
+    if timed:
+        rec.update(ms=graph_ms(kernel), events_ms=cuda_ms(kernel),
+                   plain_ms=graph_ms(plain, iters=5), library_ms=graph_ms(off))
+        set_bound(rec, n_bytes, flops, x.dtype)
+        msg += (f"; kernel {rec['ms']:.4f} ms graph / {rec['events_ms']:.4f} "
+                f"events, {flops / rec['ms'] / 1e9:.1f} TFLOP/s; plain "
+                f"{rec['plain_ms']:.4f}; flag-off composition (yardstick) "
+                f"{rec['library_ms']:.4f}; bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']})")
+    log(msg)
+    expect(rec["ok"] and rec["repeat"] and rec["finite"],
+           f"{name} {fn} {label} {x.dtype} out of tolerance")
+    return rec
+
+
+def _check_ln_kernels(results, name, fns):
+    """`fns` of `ln_proj_calls` through the port's wrappers at LN_SHAPES
+    (bf16 timed, fp32 checked), at LN_RAGGED and at LN_ODD (both dtypes).
+    The entry's times are BASE's first function's (graph replays), its
+    `library_ms` the flag-off composition's (a yardstick, not one call of
+    the same function); every timed shape's record is kept under
+    `shapes`."""
     import torch
     from prismer_tpu_torch.ops import ln_proj as lp
 
+    entry = results[name]
+    entry["library_is"] = ("yardstick: the flag-off composition "
+                           "(fp32_layer_norm, F.linear per output, the "
+                           "activation or residual)")
+    entry.setdefault("shapes", [])
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
-    entry = results["ln_proj"]
-    x32, scale, bias = _ln_case(gen, r, d)
-    for label, fs, act in (("q/k/v", (d, d, d), None),
-                           ("c_fc", (4 * d,), "quick_gelu")):
-        w32, b32 = zip(*(_dense(gen, f, d) for f in fs))
-        for dtype in (torch.float32, torch.bfloat16):
+    cases = [(label, r, d, True) for label, r, d in LN_SHAPES]
+    cases += [("ragged", r, ENC_DIM, False) for r in LN_RAGGED]
+    cases += [(f"odd F={LN_ODD[2]}", LN_ODD[0],
+               LN_ODD[1], False)]
+    for label, r, d, timed in cases:
+        case = ln_proj_case(gen, r, d)
+        if label.startswith("odd"):
+            case["qkv"] = [_dense(gen, f, d) for f in LN_ODD[2]]
+        for dtype in (torch.bfloat16, torch.float32):
+            calls = ln_proj_calls(case, dtype, lp.ln_proj, lp.adaptor_fused)
             fp32 = dtype == torch.float32
-            x = x32.to(dtype)
-            ws, bs = [w.to(dtype) for w in w32], [b.to(dtype) for b in b32]
-
-            def kernel():
-                return lp.ln_proj(x, scale, bias, ws, bs, act)
-
-            def plain():
-                return lp.ln_proj_reference(x, scale, bias, ws, bs, act)
-
-            got, again, want = kernel(), kernel(), plain()
-            torch.cuda.synchronize()
-            errs = [_ln_errors(g, w, "ln_proj", fp32)
-                    for g, w in zip(got, want)]
-            err, ok = max(e for e, _ in errs), all(o for _, o in errs)
-            repeat = all(torch.equal(g, a) for g, a in zip(got, again))
-            finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
-            ms, plain_ms = graph_ms(kernel), graph_ms(plain, iters=5)
-            flops = 2.0 * r * d * sum(fs)
-            bound = {}
-            set_bound(bound, nbytes(x, scale, bias, *ws, *bs, *got), flops,
-                      dtype)
-            log(f"  ln_proj {label} R={r} D={d} F={'+'.join(map(str, fs))} "
-                f"{act} {str(dtype)[6:]}: max|err| {err:.3g}, within "
-                f"tolerance {ok}, repeat bit-identical {repeat}, finite "
-                f"{finite}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms (graph"
-                f" replay), bound {bound['bound_ms']:.4f} ms "
-                f"({bound['bound_by']}), {flops / ms / 1e9:.1f} TFLOP/s")
-            expect(ok and repeat and finite,
-                   f"ln_proj {label} {dtype} out of tolerance")
-            if fp32:
-                entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            elif label == "q/k/v" and d == ENC_DIM:
-                entry.update(ms=ms, plain_ms=plain_ms, **bound)
-            del got, again, want
-        if act is not None:
-            _grad_check("ln_proj c_fc", lambda x, s, b, w, bb: lp.ln_proj(
-                x, s, b, [w], [bb], act), lambda x, s, b, w, bb:
-                lp.ln_proj_reference(x, s, b, [w], [bb], act),
-                (x32[:964], scale, bias, w32[0], b32[0]))
+            for fn in fns:
+                rec = _check_ln_call(name, fn, calls[fn], case["x"].to(dtype),
+                                     f"{label} R={r} D={d}", timed and not fp32,
+                                     fp32)
+                entry["max_abs_err"] = max(entry["max_abs_err"],
+                                           rec["max_abs_err"])
+                if "ms" in rec:
+                    entry["shapes"].append(rec)
+                    if label == "BASE" and fn == fns[0]:
+                        entry.update({k: rec[k] for k in (
+                            "ms", "events_ms", "plain_ms", "library_ms",
+                            "bound_ms", "bound_by")})
+            del calls
+        del case
         torch.cuda.empty_cache()
 
 
-def check_adaptor_fused(results):
-    """Kernel 15 against its plain version at the encoder's shapes, R = 8 x
-    964, D = 768 (and HUGE's R = 8 x 1220, D = 1280), fp32 and bf16; two
-    launches bit-identical; the Function's fp32 gradient."""
-    for rows, dim in ENC_SHAPES:
-        _check_adaptor_fused(results, rows, dim)
-
-
-def _check_adaptor_fused(results, r, d):
+def check_ln_proj(results):
+    """Kernel 14 against its plain version: q/k/v (3 x D) and c_fc (4 D) +
+    quick_gelu at LN_SHAPES (BASE, LARGE, HUGE at batch 8; bf16 timed by
+    graph replay and events beside the plain version, the flag-off
+    composition and the bound; fp32 checked), at LN_RAGGED and LN_ODD;
+    two launches bit-identical; the Function's fp32 gradient."""
     import torch
     from prismer_tpu_torch.ops import ln_proj as lp
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
-    entry = results["adaptor_fused"]
-    x32, scale, bias = _ln_case(gen, r, d)
-    (wd32, bd32), (wu32, bu32) = _dense(gen, d, d), _dense(gen, d, d)
-    for dtype in (torch.float32, torch.bfloat16):
-        fp32 = dtype == torch.float32
-        args = [t.to(dtype) for t in (x32, scale, bias, wd32, bd32, wu32,
-                                      bu32)]
-        args[1:3] = scale, bias
-        got, again = lp.adaptor_fused(*args), lp.adaptor_fused(*args)
-        want = lp.adaptor_reference(*args)
-        torch.cuda.synchronize()
-        err, ok = _ln_errors(got, want, "adaptor_fused", fp32,
-                             args[0].double().abs() + want.double().abs())
-        repeat = torch.equal(got, again)
-        finite = bool(torch.isfinite(got.float()).all())
-        ms = graph_ms(lambda: lp.adaptor_fused(*args))
-        plain = graph_ms(lambda: lp.adaptor_reference(*args), iters=5)
-        flops = 4.0 * r * d * d
-        bound = {}
-        set_bound(bound, nbytes(*args, got), flops, dtype)
-        log(f"  adaptor_fused R={r} D={d} {str(dtype)[6:]}: max|err| "
-            f"{err:.3g}, within tolerance {ok}, repeat bit-identical "
-            f"{repeat}, finite {finite}; kernel {ms:.4f} ms plain "
-            f"{plain:.4f} ms (graph replay), bound {bound['bound_ms']:.4f} "
-            f"ms ({bound['bound_by']}), {flops / ms / 1e9:.1f} TFLOP/s")
-        expect(ok and repeat and finite,
-               f"adaptor_fused {dtype} out of tolerance")
-        if fp32:
-            entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        elif d == ENC_DIM:
-            entry.update(ms=ms, plain_ms=plain, **bound)
-        del got, again, want
-    _grad_check("adaptor_fused", lp.adaptor_fused, lp.adaptor_reference,
-                (x32[:964], scale, bias, wd32, bd32, wu32, bu32))
+    _check_ln_kernels(results, "ln_proj", ("q/k/v", "c_fc"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    x32, scale, bias = _ln_case(gen, 964, ENC_DIM)
+    w32, b32 = _dense(gen, 4 * ENC_DIM, ENC_DIM)
+    _grad_check("ln_proj c_fc", lambda x, s, b, w, bb: lp.ln_proj(
+        x, s, b, [w], [bb], "quick_gelu"), lambda x, s, b, w, bb:
+        lp.ln_proj_reference(x, s, b, [w], [bb], "quick_gelu"),
+        (x32, scale, bias, w32, b32))
     torch.cuda.empty_cache()
+
+
+def check_adaptor_fused(results):
+    """Kernel 15 against its plain version at LN_SHAPES (bf16 timed as for
+    check_ln_proj), LN_RAGGED and LN_ODD's width, fp32 and bf16; two
+    launches bit-identical; the Function's fp32 gradient; then ptxas -v of
+    ln_proj.cu (fails on a spill in a bf16 kernel or a bf16 product kernel
+    without HGMMA)."""
+    import torch
+    from prismer_tpu_torch.ops import ln_proj as lp
+
+    _check_ln_kernels(results, "adaptor_fused", ("adaptor",))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    x32, scale, bias = _ln_case(gen, 964, ENC_DIM)
+    (wd32, bd32), (wu32, bu32) = (_dense(gen, ENC_DIM, ENC_DIM),
+                                  _dense(gen, ENC_DIM, ENC_DIM))
+    _grad_check("adaptor_fused", lp.adaptor_fused, lp.adaptor_reference,
+                (x32, scale, bias, wd32, bd32, wu32, bu32))
+    torch.cuda.empty_cache()
+    report_ptxas("ln_proj", LN_KERNELS, LN_UNGATED, LN_HGMMA)
 
 
 # ---------------------------------------------------------------------------

@@ -1070,46 +1070,6 @@ int sm_count() {
   return sms;
 }
 
-// The tensor map of a (rows, cols) row-major bf16 tensor in boxes of 64
-// columns x box_rows rows (128-byte swizzle, zeros past the edges), copied
-// to *out; false if it cannot be encoded. Encoded once per (pointer, rows,
-// cols, box_rows): the embedding does not move between steps, and a map
-// stays valid for whatever tensor later lies at the same address with the
-// same shape (PyTorch's allocator hands the per-call h and dx scratch back
-// at the same few addresses). The caller gets a copy: a later miss may
-// reuse the cache entry of an earlier hit.
-bool map_of(CUtensorMap* out, const void* p, int rows, int64_t cols,
-            int box_rows) {
-  struct Entry {
-    const void* p = nullptr;
-    int rows = 0;
-    int64_t cols = 0;
-    int box = 0;
-    CUtensorMap map;
-  };
-  static Entry cache[16];
-  static int next = 0;
-  for (const Entry& e : cache) {
-    if (e.p == p && e.rows == rows && e.cols == cols && e.box == box_rows) {
-      *out = e.map;
-      return true;
-    }
-  }
-  Entry& e = cache[next];
-  next = (next + 1) % 16;
-  e.p = nullptr;
-  if (!hopper::encode_bf16_rows(&e.map, p, 1, 1, rows, static_cast<int>(cols),
-                                0, 0, cols, box_rows)) {
-    return false;
-  }
-  e.p = p;
-  e.rows = rows;
-  e.cols = cols;
-  e.box = box_rows;
-  *out = e.map;
-  return true;
-}
-
 template <typename K>
 cudaError_t grant_once(K kernel, size_t bytes, size_t* granted) {
   if (bytes <= *granted) return cudaSuccess;
@@ -1174,7 +1134,7 @@ cudaError_t run_stats_bf16(const void* h, const void* emb, const float* bias,
   const Plan p = make_plan(N, D, V, sms);
   if (ntiles != p.vtiles) return cudaErrorInvalidValue;
   CUtensorMap hmap, emap;
-  if (!map_of(&hmap, h, N, D, 64) || !map_of(&emap, emb, V, D, 64)) {
+  if (!hopper::cached_bf16_map(&hmap, h, N, D, 64) || !hopper::cached_bf16_map(&emap, emb, V, D, 64)) {
     return cudaErrorInvalidValue;
   }
   const size_t np = static_cast<size_t>(N) * ntiles;
@@ -1215,9 +1175,9 @@ cudaError_t run_grads_bf16(const void* h, const void* emb, const float* bias,
   float* dh_part =
       reinterpret_cast<float*>(base + p.dx_bytes + p.dbias_bytes);
   CUtensorMap hmap, emap, dx64, dxnt, dembmap;
-  if (!map_of(&hmap, h, N, D, 64) || !map_of(&emap, emb, V, D, 64) ||
-      !map_of(&dx64, dx, N, p.vp, 64) || !map_of(&dxnt, dx, N, p.vp, p.h_nt) ||
-      !map_of(&dembmap, demb, V, D, 64)) {
+  if (!hopper::cached_bf16_map(&hmap, h, N, D, 64) || !hopper::cached_bf16_map(&emap, emb, V, D, 64) ||
+      !hopper::cached_bf16_map(&dx64, dx, N, p.vp, 64) || !hopper::cached_bf16_map(&dxnt, dx, N, p.vp, p.h_nt) ||
+      !hopper::cached_bf16_map(&dembmap, demb, V, D, 64)) {
     return cudaErrorInvalidValue;
   }
 

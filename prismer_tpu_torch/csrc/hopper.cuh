@@ -4,7 +4,8 @@
 // backward kernels (flash_attention.cu, flash_attention_bwd.cu), the
 // grouped decode cross-attention (decode_attention.cu), the fused decode
 // step (fused_decode.cu), the decode loop's tail (lm_topk.cu,
-// beam_update.cu) and the fused label-smoothed CE (fused_ce.cu); written
+// beam_update.cu), the fused label-smoothed CE (fused_ce.cu) and the
+// encoder's LayerNorm-fed projections (ln_proj.cu); written
 // without CUTLASS / CuTe so that every build error names a line of this
 // repository.
 //
@@ -127,6 +128,49 @@ inline bool aligned(const void* const* ptrs, int n_ptrs,
   for (int i = 0; i < n_ptrs; ++i) {
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
   }
+  return true;
+}
+
+// The tensor map of a (rows, cols) row-major bf16 tensor in boxes of 64
+// columns x box_rows rows (128-byte swizzle, zeros past the edges), copied
+// to *out; false if it cannot be encoded. Encoded once per (pointer, rows,
+// cols, box_rows) in one cache of kMapCache entries that every source
+// including this header shares: weights do not move between calls, and a
+// map stays valid for whatever tensor later lies at the same address with
+// the same shape (PyTorch's allocator hands per-call activations and
+// scratch back at the same few addresses). The caller gets a copy: a later
+// miss may reuse the cache entry of an earlier hit.
+constexpr int kMapCache = 128;
+
+inline bool cached_bf16_map(CUtensorMap* out, const void* p, int rows,
+                            int64_t cols, int box_rows) {
+  struct Entry {
+    const void* p = nullptr;
+    int rows = 0;
+    int64_t cols = 0;
+    int box = 0;
+    CUtensorMap map;
+  };
+  static Entry cache[kMapCache];
+  static int next = 0;
+  for (const Entry& e : cache) {
+    if (e.p == p && e.rows == rows && e.cols == cols && e.box == box_rows) {
+      *out = e.map;
+      return true;
+    }
+  }
+  Entry& e = cache[next];
+  next = (next + 1) % kMapCache;
+  e.p = nullptr;
+  if (!encode_bf16_rows(&e.map, p, 1, 1, rows, static_cast<int>(cols), 0, 0,
+                        cols, box_rows)) {
+    return false;
+  }
+  e.p = p;
+  e.rows = rows;
+  e.cols = cols;
+  e.box = box_rows;
+  *out = e.map;
   return true;
 }
 
@@ -338,6 +382,16 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// the inverse of ldsm_x4: lanes 8i .. 8i + 7 give the row addresses of
+// matrix i, which is written from r[i] (lane t: row t / 4, columns 2 (t % 4)
+// and 2 (t % 4) + 1)
+__device__ __forceinline__ void stsm_x4(uint32_t addr, const uint32_t* r) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -756,6 +810,54 @@ __device__ __forceinline__ void wgmma_rs_wide(float* d, const uint32_t* a,
       wgmma_rs<kRest>(d + 32 * c, a, b, 1);
     }
   }
+}
+
+// d (64 x 128) (+)= A (64 x 16, registers) * B (16 x 128, shared, K-major);
+// scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_rsk_n128(float* d, const uint32_t* a,
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// a warpgroup's registers a thread: every warp of the warpgroup executes
+// it. A warp-specialised kernel lowers its producer's and raises its
+// consumers' (the totals within the register file)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // d (64 x N) (+)= A * B^T over DH columns, A (64 rows) and B (N rows) K-major

@@ -45,46 +45,60 @@ __device__ __forceinline__ void store_vec<__nv_bfloat16>(__nv_bfloat16* p,
   *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// LayerNorm of x[0:D) by one warp (every lane calls it). D is a multiple of
-// Vec<T>::kN and at most kLnMaxDim, x is 16-byte aligned, scale and bias
-// are fp32. emit(k, y) receives the lane's normalised values y[0:kN) of
-// columns k .. k + kN - 1, in fp32.
+// Row x[0:D) of the definition above, held by one warp (every lane
+// constructs it): the lane's 16-byte slices (lane + 32 i) widened to fp32
+// and centred on the row's mean (v), the mean and rsqrt(var + eps). D is a
+// multiple of Vec<T>::kN and at most kLnMaxDim, x is 16-byte aligned.
+template <typename T>
+struct LnRow {
+  static constexpr int V = Vec<T>::kN;
+  static constexpr int NV = kLnMaxDim / (32 * V);
+  float v[NV][V];
+  float mean, rstd;
+
+  __device__ __forceinline__ LnRow(const T* __restrict__ x, int D, float eps,
+                                   int lane) {
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int k = (lane + 32 * i) * V;
+      if (k < D) Vec<T>::load(x + k, v[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if ((lane + 32 * i) * V < D) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) sum += v[i][j];
+      }
+    }
+    mean = warp_sum(sum) / static_cast<float>(D);
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      if ((lane + 32 * i) * V < D) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          v[i][j] -= mean;
+          sq += v[i][j] * v[i][j];
+        }
+      }
+    }
+    rstd = rsqrtf(warp_sum(sq) / static_cast<float>(D) + eps);
+  }
+};
+
+// LayerNorm of x[0:D) by one warp (every lane calls it); scale and bias are
+// fp32. emit(k, y) receives the lane's normalised values y[0:kN) of
+// columns k .. k + kN - 1, in fp32: y = (x - mean) * rstd * scale + bias.
 template <typename T, typename Emit>
 __device__ __forceinline__ void ln_row(const T* __restrict__ x,
                                        const float* __restrict__ scale,
                                        const float* __restrict__ bias, int D,
                                        float eps, int lane, Emit emit) {
   constexpr int V = Vec<T>::kN;
-  constexpr int NV = kLnMaxDim / (32 * V);
-  float v[NV][V];
-  float sum = 0.f;
+  const LnRow<T> row(x, D, eps, lane);
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int k = (lane + 32 * i) * V;
-    if (k < D) Vec<T>::load(x + k, v[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    if ((lane + 32 * i) * V < D) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) sum += v[i][j];
-    }
-  }
-  const float mean = warp_sum(sum) / static_cast<float>(D);
-  float sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    if ((lane + 32 * i) * V < D) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        v[i][j] -= mean;
-        sq += v[i][j] * v[i][j];
-      }
-    }
-  }
-  const float rstd = rsqrtf(warp_sum(sq) / static_cast<float>(D) + eps);
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
+  for (int i = 0; i < LnRow<T>::NV; ++i) {
     const int k = (lane + 32 * i) * V;
     if (k < D) {
       float s[V], b[V], y[V];
@@ -94,7 +108,7 @@ __device__ __forceinline__ void ln_row(const T* __restrict__ x,
         Vec<float>::load(bias + k + j, b + j);
       }
 #pragma unroll
-      for (int j = 0; j < V; ++j) y[j] = v[i][j] * rstd * s[j] + b[j];
+      for (int j = 0; j < V; ++j) y[j] = row.v[i][j] * row.rstd * s[j] + b[j];
       emit(k, y);
     }
   }

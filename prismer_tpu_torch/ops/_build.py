@@ -124,9 +124,11 @@ def kernels() -> ctypes.CDLL:
     lib.prismer_ms_deform_attn.restype = _I
     lib.prismer_layer_norm.argtypes = [_P] * 4 + [_I] * 2 + [_F, _I, _P]
     lib.prismer_layer_norm.restype = _I
-    lib.prismer_ln_proj.argtypes = [_P] * 12 + [_I] * 6 + [_F, _I, _I, _P]
+    lib.prismer_ln_proj.argtypes = ([_P] * 12 + [_I] * 6
+                                    + [_F, _I, _I, _P, _I, _I, _P])
     lib.prismer_ln_proj.restype = _I
-    lib.prismer_adaptor_fused.argtypes = [_P] * 8 + [_I] * 2 + [_F, _I, _P]
+    lib.prismer_adaptor_fused.argtypes = ([_P] * 8 + [_I] * 2
+                                          + [_F, _I, _P, _I, _I, _P])
     lib.prismer_adaptor_fused.restype = _I
     lib.prismer_grouped_attention.argtypes = (
         [_P] * 4 + [_I] * 5 + [_L] * 6 + [_I, _I, _F, _P])

@@ -20,7 +20,10 @@ adaptor's relu, square and residual add in x's dtype.
 
 `ln_proj` / `adaptor_fused` launch their kernels for CUDA tensors and
 compute `ln_proj_reference` / `adaptor_reference` for tensors on the CPU;
-launches are counted in their `launches` attributes. The backward of each
+launches are counted in their `launches` attributes (one a wrapper call,
+though bf16 runs two kernels: the rows' statistics, then the products).
+`ln_proj_plan` / `adaptor_plan` mirror the C launch plans; the C entries
+refuse a call whose plan differs. The backward of each
 recomputes the plain version under autograd, as the JAX custom_vjp
 recomputes its XLA composition: there is no backward kernel.
 """
@@ -29,6 +32,8 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import functools
+
 import torch
 
 from prismer_tpu_torch.ops.layer_norm import (_DTYPE_CODES, check_rows,
@@ -36,6 +41,113 @@ from prismer_tpu_torch.ops.layer_norm import (_DTYPE_CODES, check_rows,
 
 _ACT_CODES = {None: 0, "quick_gelu": 1}
 MAX_OUTPUTS = 3
+H100_SMS = 132
+SMEM_LIMIT = 232448       # a block's shared memory on sm_90
+_BOX = 64 * 128           # bytes of a 64-row, 128-byte-wide TMA box
+# fp32 FMA kernels: 128-column tiles, six a block (ln_proj), three
+# cp.async stages of 128 x 36 floats
+_F32 = {"bn": 128, "group": 6, "stage_floats": 3 * 128 * 36,
+        "ln_proj_rows": 32, "adaptor_rows": 16}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def ln_proj_plan(r: int, d: int, fs: Tuple[int, ...], dtype=torch.bfloat16,
+                 sms: int = H100_SMS) -> dict:
+    """The launch plan of `ln_proj`'s kernel, computed as `proj_plan` /
+    `run_ln_proj_f32` in csrc/ln_proj.cu compute it (keep them in step).
+
+    bf16 ("wgmma"): tiles of 128 rows x 256 columns of one output, output i
+    owning column tiles [first[i], first[i] + ceil(F_i / 256)) of the
+    outputs side by side; tile t is row tile t // col_tiles, column tile
+    t % col_tiles; `blocks` (about one an SM) walk the tiles, block b taking
+    b, b + blocks, ...; 384 threads (two consumer warpgroups of 64 rows, a
+    producer warpgroup); shared memory: the 1024-byte alignment slack, a
+    ring of 3 stages of x (128 x 64) and W (256 x 64) boxes, the output
+    boxes, the affine and the tile's biases; the row statistics' scratch
+    (R, 2) fp32. fp32 ("fma"): grid (column groups of 768, row tiles of
+    32). Cached per call shape: the caller must not change the dict."""
+    if dtype == torch.float32:
+        groups = sum(_cdiv(f, _F32["bn"] * _F32["group"]) for f in fs)
+        rows = _F32["ln_proj_rows"]
+        return {"kind": "fma", "rows": rows, "grid": (groups, _cdiv(r, rows)),
+                "blocks": groups * _cdiv(r, rows), "threads": 256,
+                "cluster": (1, 1, 1), "scratch_bytes": 0,
+                "smem": (rows * (d + 4) + _F32["stage_floats"]) * 4}
+    rows, bn, stages = 128, 256, 3
+    first, col_tiles = [], 0
+    for f in fs:
+        first.append(col_tiles)
+        col_tiles += _cdiv(f, bn)
+    tiles = _cdiv(r, rows) * col_tiles
+    return {"kind": "wgmma", "R": r, "rows": rows, "bn": bn,
+            "stages": stages, "threads": 3 * 128, "row_tiles": _cdiv(r, rows),
+            "col_tiles": col_tiles, "first": first, "tiles": tiles,
+            "blocks": min(tiles, sms), "chunks": d // 64,
+            "cluster": (1, 1, 1), "scratch_bytes": r * 8,
+            "smem": (1024 + stages * (rows + bn) * 128 + 2 * (bn // 64) * _BOX
+                     + d * 8 + 2 * bn * 2 + 2 * stages * 8)}
+
+
+def ln_proj_tiles(plan: dict, fs: Sequence[int]):
+    """The tiles of a "wgmma" plan in each block's walk: (block, output,
+    row0, col0, rows stored, columns stored) with the stores clipped to R
+    and F_i as the TMA stores clip them; R = plan["R"]."""
+    r = plan["R"]
+    for block in range(plan["blocks"]):
+        for t in range(block, plan["tiles"], plan["blocks"]):
+            g = t % plan["col_tiles"]
+            out = max(i for i, first in enumerate(plan["first"])
+                      if g >= first)
+            row0 = t // plan["col_tiles"] * plan["rows"]
+            col0 = (g - plan["first"][out]) * plan["bn"]
+            yield (block, out, row0, col0, min(plan["rows"], r - row0),
+                   min(plan["bn"], fs[out] - col0))
+
+
+@functools.lru_cache(maxsize=256)
+def adaptor_plan(r: int, d: int, dtype=torch.bfloat16) -> dict:
+    """The launch plan of `adaptor_fused`'s kernel, computed as `ad_plan` /
+    `run_adaptor_f32` in csrc/ln_proj.cu compute them (keep them in step).
+
+    bf16 ("wgmma"): a block of 160 threads (one consumer warpgroup, one
+    producer warp) a 64-row tile, 128-column tiles of both products;
+    shared memory: the alignment slack, h (64 x D bf16), two staging
+    boxes, two column tiles' biases, then as many ring stages of x (64 x
+    64) + W (128 x 64) boxes as fit, at most 4, and their barriers; the
+    row statistics' scratch (R, 2) fp32. fp32 ("fma"): 16 rows a block.
+    Cached per call shape, as ln_proj_plan."""
+    if dtype == torch.float32:
+        rows = _F32["adaptor_rows"]
+        return {"kind": "fma", "rows": rows, "grid": (_cdiv(r, rows), 1),
+                "blocks": _cdiv(r, rows), "threads": 256,
+                "cluster": (1, 1, 1), "scratch_bytes": 0,
+                "smem": (2 * rows * (d + 4) + _F32["stage_floats"]) * 4}
+    rows, bn = 64, 128
+    stage = _BOX + bn * 128
+    fixed = 1024 + d * 128 + 2 * _BOX + 2 * bn * 2
+    stages = min(4, (SMEM_LIMIT - fixed - 9 * 8) // stage)
+    return {"kind": "wgmma", "rows": rows, "bn": bn, "stages": stages,
+            "threads": 128 + 32, "blocks": _cdiv(r, rows),
+            "col_tiles": _cdiv(d, bn), "chunks": d // 64,
+            "cluster": (1, 1, 1), "scratch_bytes": r * 8,
+            "smem": fixed + stages * stage + (2 * stages + 1) * 8}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _stats_scratch(x2d: torch.Tensor, plan: dict):
+    """The row statistics' (R, 2) fp32 scratch of a bf16 plan, else None."""
+    if not plan["scratch_bytes"]:
+        return None
+    return torch.empty((x2d.shape[0], 2), dtype=torch.float32,
+                       device=x2d.device)
 
 
 def _product(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -107,6 +219,8 @@ def _ln_proj_forward(x2d, scale, bias, weights, biases, activation, eps):
                          f"D = {d}")
     outs = [torch.empty((r, f), dtype=x2d.dtype, device=x2d.device)
             for f in fs]
+    plan = ln_proj_plan(r, d, tuple(fs), x2d.dtype, _sm_count(x2d.device))
+    stats = _stats_scratch(x2d, plan)
     pad = [None] * (MAX_OUTPUTS - n)
     err = _build.kernels().prismer_ln_proj(
         x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(),
@@ -114,7 +228,8 @@ def _ln_proj_forward(x2d, scale, bias, weights, biases, activation, eps):
         *(t.data_ptr() for t in biases), *pad,
         *(t.data_ptr() for t in outs), *pad, *fs, *[0] * len(pad), n, r, d,
         float(eps), _ACT_CODES[activation], _DTYPE_CODES[x2d.dtype],
-        torch.cuda.current_stream(x2d.device).cuda_stream)
+        None if stats is None else stats.data_ptr(), plan["blocks"],
+        plan["smem"], torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(err, "ln_proj")
     ln_proj.launches += 1
     return tuple(outs)
@@ -134,11 +249,14 @@ def _adaptor_forward(x2d, scale, bias, wd, bd, wu, bu, eps):
         raise ValueError(f"adaptor_fused: weights {tuple(wd.shape)}, "
                          f"{tuple(wu.shape)} for D = {d}")
     out = torch.empty_like(x2d)
+    plan = adaptor_plan(r, d, x2d.dtype)
+    stats = _stats_scratch(x2d, plan)
     err = _build.kernels().prismer_adaptor_fused(
         x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(), wd.data_ptr(),
         bd.data_ptr(), wu.data_ptr(), bu.data_ptr(), out.data_ptr(), r, d,
         float(eps), _DTYPE_CODES[x2d.dtype],
-        torch.cuda.current_stream(x2d.device).cuda_stream)
+        None if stats is None else stats.data_ptr(), plan["blocks"],
+        plan["smem"], torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(err, "adaptor_fused")
     adaptor_fused.launches += 1
     return out

@@ -8,7 +8,8 @@ port's plain versions follow, and JAX's XLA composition `_ln_proj_ref`,
 which applies the activation in bf16 and so differs by bf16 noise. Then a
 tiny VisionTransformer and the tiny caption slice with the flag on in both
 packages (JAX routes the flag to `_ln_proj_ref` on the CPU). Inputs and
-weights come from a numpy seed. Tolerances are those of
+weights come from a numpy seed, at a small width (D 256) and at LARGE's
+(D 1024, R 300). Tolerances are those of
 tests/test_ln_proj.py: fp32 atol 2e-5, bf16 atol 2e-2 (3e-2 for the
 adaptor) with rtol 2e-2, since the two sides sum each product in another
 order and a bf16 rounding can flip one ulp of values up to ~30.
@@ -105,6 +106,36 @@ def test_ln_proj_plain_close_to_jax_reference_composition(act):
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_adaptor_plain_matches_jax_interpret_kernel(dtype):
     (x, s, b, ws, bs), (px, ps, pb, pws, pbs) = _case(2, R, D, (D, D), dtype)
+    want = jax_lp.adaptor_fused(x, s, b, ws[0], bs[0], ws[1], bs[1],
+                                block_r=256, interpret=True)
+    got = port_lp.adaptor_fused(px, ps, pb, pws[0], pbs[0], pws[1], pbs[1])
+    assert port_lp.adaptor_fused.launches == 0
+    _close(got, want, dtype, BF16_TOL["adaptor"])
+
+
+# the LARGE width (ViT-L/14): D 1024, R ragged against the CUDA kernels'
+# 128- and 64-row tiles and JAX's 256-row block (300 = 2 x 128 + 44)
+R_LARGE, D_LARGE = 300, 1024
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("act", [None, "quick_gelu"])
+def test_ln_proj_plain_matches_jax_interpret_kernel_large(dtype, act):
+    """q/k/v (3 x D) without an activation, c_fc (4 D) with quick_gelu."""
+    fs = (D_LARGE,) * 3 if act is None else (4 * D_LARGE,)
+    (x, s, b, ws, bs), port = _case(7, R_LARGE, D_LARGE, fs, dtype)
+    want = jax_lp.ln_proj(x, s, b, ws, bs, activation=act, block_r=256,
+                          interpret=True)
+    got = port_lp.ln_proj(*port, activation=act)
+    assert len(got) == len(fs) and port_lp.ln_proj.launches == 0
+    for g, w in zip(got, want):
+        _close(g, w, dtype, BF16_TOL["ln_proj"])
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_adaptor_plain_matches_jax_interpret_kernel_large(dtype):
+    (x, s, b, ws, bs), (px, ps, pb, pws, pbs) = _case(
+        8, R_LARGE, D_LARGE, (D_LARGE, D_LARGE), dtype)
     want = jax_lp.adaptor_fused(x, s, b, ws[0], bs[0], ws[1], bs[1],
                                 block_r=256, interpret=True)
     got = port_lp.adaptor_fused(px, ps, pb, pws[0], pbs[0], pws[1], pbs[1])

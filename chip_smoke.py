@@ -19,7 +19,17 @@ default as in JAX: each as an fp32 decoder at batch 2 on the card against
 the CPU (step logits and beam ids), and the first as bf16 batch-8 requests
 beside the switch off. Then Prismer-LARGE (ViT-L/14, 336 px) and
 Prismer-HUGE (ViT-H/14, 480 px, int8 off and on) serve batch-8 requests at
-full depth. Then the caption fine-tune step: one fp32 train step on the card against the CPU, and ten bf16 AdamW
+full depth. Then VQA and answer ranking: "vqa parity" (fp32 BASE at
+batch 2, the card's encoder states copied to the CPU: `rank_answers`'
+pass-1 candidates, pass-2 scores and choice over 3,000 answers whose first
+tokens tie, and VQA beam search over right-padded questions, card against
+CPU), "serve vqa rank" (bf16 `build_rank_fn` at batch 1 and 32 with
+bench.py's shapes, 30 requests each: p50 / p90 ms, kernels 1 and 2 the
+only ones launched), "serve vqa generate" (bf16 `build_answer_fn` at batch
+8, every serving kernel launched) and "convert" (a synthetic BASE
+checkpoint in the reference's layout through `python -m
+prismer_tpu_torch.convert.cli`, loaded into the port, one caption request
+served). Then the caption fine-tune step: one fp32 train step on the card against the CPU, and ten bf16 AdamW
 steps through `build_train_step` that must lower the loss, move every
 trainable leaf, keep every frozen one and launch every training kernel,
 timed at batch 4 and 16. Then the segmentation expert's label generation:
@@ -89,6 +99,7 @@ import argparse
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -249,20 +260,37 @@ def graph_ms(fn, iters: int = 20) -> float:
 
 def forward_attention():
     """Kernels 1 and 2's shapes as (name, packed, B, Lq, Lk, H, Dh, key
-    mask, causal): serving at batch 8 (the encoder, the resampler, the LARGE
-    / HUGE head dims of wide_attention, the decoder's masked causal prefill
-    at prompt lengths 4 and 40 over N = 8 x 3 beams), then the train step's
-    at batch 4 (TRAIN_ATTENTION). Key masks: "prefill" (right-padded
-    prompts, the first key always kept) or "captions" (right-padded
-    captions, one sample with no valid key)."""
-    return [("encoder", True, 8, 964, 964, 12, 64, None, False),
-            ("resampler", True, 8, 64, 1240, 8, 96, None, False),
-            *[(name, True, b, lq, lk, h, dh, None, False)
+    mask, causal, views): serving at batch 8 (the encoder, the resampler,
+    the LARGE / HUGE head dims of wide_attention, the decoder's masked
+    causal prefill at prompt lengths 4 and 40 over N = 8 x 3 beams), the
+    VQA rank path at batch 1 and 32 (pass 1's self-attention over the
+    12-token question and its cross-attention over the 964 encoder states;
+    pass 2's over [question ; answer] for N = B x k_test rows), VQA
+    generation's prefill (BOS + 12 question tokens, N = 8 x 3 beams), then
+    the train step's at batch 4 (TRAIN_ATTENTION). Key masks: "prefill"
+    (right-padded prompts, the first key always kept), "rank" (a
+    right-padded question, then the answer's keys all kept) or "captions"
+    (right-padded captions, one sample with no valid key). views: the
+    head-split operands are the decoder's split_heads views of (B, L, H*Dh)
+    projections, as the model passes them, not contiguous (B, H, L, Dh)."""
+    q_len, a_len, k = RANK_Q_LEN, RANK_ANSWER_LEN, RANK_K
+    return [("encoder", True, 8, 964, 964, 12, 64, None, False, False),
+            ("resampler", True, 8, 64, 1240, 8, 96, None, False, False),
+            *[(name, True, b, lq, lk, h, dh, None, False, False)
               for name, b, lq, lk, h, dh in wide_attention()],
-            *[(f"prefill P{n}", False, 24, n, n, 12, 64, "prefill", True)
-              for n in (4, 40)],
+            *[(f"prefill P{n}", False, 24, n, n, 12, 64, "prefill", True,
+               False) for n in (4, 40)],
+            *[row for b in (1, 32) for row in (
+                (f"rank pass 1 self B{b}", False, b, q_len, q_len, 12, 64,
+                 "prefill", True, True),
+                (f"rank pass 1 cross B{b}", False, b, q_len, 964, 12, 64,
+                 None, False, True),
+                (f"rank pass 2 self N{b * k}", False, b * k, q_len + a_len,
+                 q_len + a_len, 12, 64, "rank", True, True))],
+            ("vqa prefill P13", False, VQA_GEN_BATCH * 3, 13, 13, 12, 64,
+             "prefill", True, True),
             *[(f"train {name}", packed, b, lq, lk, h, dh,
-               "captions" if masked else None, causal)
+               "captions" if masked else None, causal, False)
               for name, packed, b, lq, lk, h, dh, masked, causal
               in TRAIN_ATTENTION]]
 
@@ -275,6 +303,11 @@ def _forward_mask(kind, b, lk):
         lens = torch.tensor([lk, lk - 7, 5, 0][:b], device="cuda")
         return (torch.arange(lk, device="cuda")[None] < lens[:, None]).to(
             torch.int32)
+    if kind == "rank":  # questions of 1 .. P tokens, then the answer's
+        p = lk - RANK_ANSWER_LEN
+        lens = 1 + torch.arange(b, device="cuda") % p
+        pos = torch.arange(lk, device="cuda")[None]
+        return ((pos < lens[:, None]) | (pos >= p)).to(torch.int32)
     mask = torch.ones(b, lk, dtype=torch.int32, device="cuda")
     for i in range(0, b, 5):  # some right-padded rows
         mask[i, lk - 1 - (i % max(lk - 1, 1)):] = 0
@@ -297,13 +330,15 @@ def check_attention(results):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     entries = {True: results["flash_attention_packed"],
                False: results["flash_attention"]}
-    for name, packed, b, lq, lk, h, dh, mask_kind, causal in \
+    for name, packed, b, lq, lk, h, dh, mask_kind, causal, views in \
             forward_attention():
-        if packed:
+        if packed or views:
             shapes = ((b, lq, h * dh), (b, lk, h * dh), (b, lk, h * dh))
         else:
             shapes = ((b, h, lq, dh), (b, h, lk, dh), (b, h, lk, dh))
         base = [torch.randn(*s, generator=gen, device="cuda") for s in shapes]
+        if views:
+            base = [fa._heads(t, h) for t in base]
         mask = _forward_mask(mask_kind, b, lk)
         keep = torch.ones(lq, lk, dtype=torch.bool, device="cuda")
         if causal:
@@ -2474,6 +2509,425 @@ def phase_serve_ln_proj(results, card: str, profile: bool):
 
 
 # ---------------------------------------------------------------------------
+# VQA and answer ranking, and the reference-checkpoint converter
+# ---------------------------------------------------------------------------
+
+# rank inference as bench.py's vqa_latency runs it: a 3,000-answer list of
+# 4 tokens, k_test 16, questions of 12 tokens
+RANK_ANSWERS, RANK_ANSWER_LEN, RANK_Q_LEN, RANK_K = 3000, 4, 12, 16
+RANK_REQUESTS = 30
+RANK_PATH = ("flash_attention_packed", "flash_attention")
+# pass-2 scores, fp32 card vs CPU: a mean of ~4 label-smoothed log-probs
+# over the 50,265-word vocabulary, summed in another order (max abs)
+TOL_RANK_SCORES = 1e-4
+VQA_GEN_BATCH = 8
+VQA_GEN_REQUESTS = 6
+
+
+def vqa_answers(gen, vocab: int, device):
+    """(ids, mask) (3000, 4) int32: answers '<a> <b> <c> </s>' whose first
+    tokens take 600 values (about five answers each), and answers 1000-1199
+    share 8 of them, so pass 1's top 16 is made of ties."""
+    import torch
+    n = RANK_ANSWERS
+    pool = torch.randint(4, vocab, (600,), generator=gen)
+    first = pool[torch.randint(0, 600, (n,), generator=gen)]
+    first[1000:1200] = pool[torch.arange(200) % 8]
+    ids = torch.randint(4, vocab, (n, RANK_ANSWER_LEN), generator=gen)
+    ids[:, 0] = first
+    ids[:, -1] = 2
+    ids = ids.to(torch.int32)
+    return ids.to(device), torch.ones_like(ids).to(device)
+
+
+def vqa_questions(gen, lengths, device):
+    """(ids, mask) (B, 1 + max(lengths)) int32: BOS and that many question
+    tokens, right-padded."""
+    import torch
+    q = 1 + max(lengths)
+    ids = torch.ones((len(lengths), q), dtype=torch.int32)
+    ids[:, 0] = 0
+    for r, n in enumerate(lengths):
+        ids[r, 1:1 + n] = torch.randint(4, 1000, (n,), generator=gen,
+                                        dtype=torch.int32)
+    mask = (torch.arange(q)[None, :] <= torch.tensor(lengths)[:, None])
+    return ids.to(device), mask.to(torch.int32).to(device)
+
+
+def phase_vqa_parity(results):
+    """fp32 Prismer-BASE at batch 2: the encoder states of the card copied
+    to the CPU; rank_answers (pass 1 candidates, pass 2 scores, the choice)
+    and VQA beam search over right-padded questions of 9 and 12 tokens on
+    the card (kernels; fused decode) against the CPU (plain; per layer)."""
+    import torch
+    from prismer_tpu_torch.data.device import materialize_experts
+    from prismer_tpu_torch.models.generation import (rank_candidates,
+                                                     score_candidates)
+    from prismer_tpu_torch.models.prismer import (build_random_prismer,
+                                                  prepare_serving_variables)
+    from prismer_tpu_torch.models.vqa import beam_answers
+
+    cfg = slice_config("float32")
+    models = {"cpu": build_random_prismer(cfg, SEED, "cpu"),
+              "cuda": build_random_prismer(cfg, SEED, "cuda")}
+    gen = torch.Generator().manual_seed(SEED + 7)
+    raw = raw_batch(cfg, 2, torch.Generator(device="cuda").manual_seed(
+        SEED + 7), "cuda")
+    with torch.no_grad():
+        enc_gpu = models["cuda"].encode(materialize_experts(raw,
+                                                            torch.float32))
+    ans = vqa_answers(gen, cfg.decoder.vocab_size, "cpu")
+    q = vqa_questions(gen, (12, 9), "cpu")
+    out = {}
+    for dev, model in models.items():
+        enc = enc_gpu.to(dev)
+        a = [x.to(dev) for x in ans]
+        qq = [x.to(dev) for x in q]
+        t0 = time.perf_counter()
+        cand = rank_candidates(model, enc, *qq, a[0][:, 0], RANK_K)
+        scores = score_candidates(model, enc, *qq, *a, cand)
+        best = cand.gather(1, scores.argmax(dim=1)[:, None])[:, 0]
+        ids = beam_answers(model, enc, *qq,
+                           prepare_serving_variables(model))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = [x.cpu() for x in (cand, scores, best, ids)]
+        log(f"  {dev}: rank + generate {time.perf_counter() - t0:.2f} s")
+    (c_c, s_c, b_c, i_c), (c_g, s_g, b_g, i_g) = out["cpu"], out["cuda"]
+    err = (s_g - s_c).abs().max().item()
+    firsts = ans[0][c_g.long(), 0]
+    ties = sum(len(set(r.tolist())) < RANK_K for r in firsts)
+    log(f"  pass 1 candidates equal {torch.equal(c_g, c_c)} (rows with tied "
+        f"first tokens: {ties} of 2), chosen {b_g.tolist()} vs "
+        f"{b_c.tolist()}, pass-2 max|score diff| {err:.3g} (tol "
+        f"{TOL_RANK_SCORES})")
+    log(f"  generate ids (fused on the card, per layer on the CPU) equal "
+        f"{torch.equal(i_g, i_c)}: {i_g[:, q[0].shape[1]:].tolist()}")
+    expect(ties == 2, "the answers' tied first tokens missed pass 1's top k")
+    expect(torch.equal(c_g, c_c), "pass 1 candidates differ")
+    expect(err <= TOL_RANK_SCORES, "pass 2 scores differ")
+    expect(torch.equal(b_g, b_c), "chosen answers differ")
+    expect(tuple(i_g.shape) == (2, q[0].shape[1] + 10)
+           and torch.equal(i_g, i_c), "VQA generate ids differ")
+    del models, enc_gpu
+    torch.cuda.empty_cache()
+
+
+def _percentiles(times):
+    qs = statistics.quantiles(times, n=10)
+    return (f"p50 {statistics.median(times):.2f}, p90 {qs[8]:.2f}, p10 "
+            f"{qs[0]:.2f}, min {min(times):.2f}, max {max(times):.2f}")
+
+
+def split_rank(model, req, label: str, card: str) -> None:
+    """CUDA-event ms of one rank request's encode (expert gather
+    included), pass 1 and pass 2."""
+    import torch
+    from prismer_tpu_torch.data.device import materialize_experts
+    from prismer_tpu_torch.models.generation import (rank_candidates,
+                                                     score_candidates)
+    from prismer_tpu_torch.models.prismer import compute_dtype
+
+    raw, q, q_mask, a_ids, a_mask = req
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.no_grad():
+        ev[0].record()
+        enc = model.encode(materialize_experts(raw, compute_dtype(model.cfg)))
+        ev[1].record()
+        cand = rank_candidates(model, enc, q, q_mask, a_ids[:, 0], RANK_K)
+        ev[2].record()
+        score_candidates(model, enc, q, q_mask, a_ids, a_mask, cand)
+        ev[3].record()
+    torch.cuda.synchronize()
+    log(f"  split {label}: encode {ev[0].elapsed_time(ev[1]):.1f} ms, pass 1 "
+        f"{ev[1].elapsed_time(ev[2]):.1f} ms, pass 2 "
+        f"{ev[2].elapsed_time(ev[3]):.1f} ms ({card})")
+
+
+def phase_serve_vqa_rank(results, card: str, profile: bool):
+    """bf16 rank requests through build_rank_fn (bench.py's vqa_latency
+    shapes, the questions right-padded to 12 tokens) at batch 1 and 32: ms per request over 30 requests each (CUDA
+    events after a synchronize), kernels 1 and 2 the only ones launched,
+    their launches per request, peak memory; `profile`: one request of
+    each batch under torch.profiler."""
+    import torch
+    from prismer_tpu_torch.models.caption import build_rank_fn
+
+    cfg, model, _ = serve_setup()
+    vocab = cfg.decoder.vocab_size
+    rank = build_rank_fn(model, k_test=RANK_K)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    a_ids = torch.randint(4, vocab, (RANK_ANSWERS, RANK_ANSWER_LEN),
+                          generator=gen, device="cuda", dtype=torch.int32)
+    a_mask = torch.ones_like(a_ids)
+    wrap = wrappers()
+    for batch in (1, 32):
+        reqs = []
+        for i in range(3):
+            # questions of 5-12 tokens right-padded to 12 (pad id 1); the
+            # first row of request i holds 12 - 3i, so batch 1 pads too
+            lens = torch.randint(5, RANK_Q_LEN + 1, (batch,), generator=gen,
+                                 device="cuda")
+            lens[0] = RANK_Q_LEN - 3 * i
+            q_mask = (torch.arange(RANK_Q_LEN, device="cuda")[None]
+                      < lens[:, None]).to(torch.int32)
+            q = torch.randint(4, 1000, (batch, RANK_Q_LEN), generator=gen,
+                              device="cuda", dtype=torch.int32)
+            q = torch.where(q_mask.bool(), q, torch.ones_like(q))
+            reqs.append((raw_batch(cfg, batch, gen, "cuda"), q, q_mask,
+                         a_ids, a_mask))
+        first = rank(*reqs[0])            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrap.values():
+            fn.launches = 0
+        outs, times = timed_requests(
+            rank, [reqs[i % 3] for i in range(RANK_REQUESTS)])
+        counts = {name: fn.launches for name, fn in wrap.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per = {n: counts[n] / RANK_REQUESTS for n in RANK_PATH}
+        for n in RANK_PATH:
+            results[n].setdefault("launches_per_request", {})[
+                f"vqa_rank_b{batch}"] = per[n]
+        expect(all(o.shape == (batch,) and o.dtype == torch.int64
+                   and bool(((o >= 0) & (o < RANK_ANSWERS)).all())
+                   for o in outs), f"batch {batch}: rank output")
+        expect(torch.equal(outs[0], first), "same request gave another "
+               "answer")
+        expect(all(counts[n] > 0 for n in RANK_PATH) and all(
+            c == 0 for n, c in counts.items() if n not in RANK_PATH),
+            f"rank path launches {counts}")
+        log(f"  rank batch {batch}, k {RANK_K}, {RANK_ANSWERS} answers: "
+            f"ms/request over {RANK_REQUESTS}: {_percentiles(times)}; "
+            f"{batch * 1000.0 / statistics.median(times):.1f} images/s; "
+            f"peak memory {peak:.2f} GiB; launches per request "
+            + ", ".join(f"{n}={per[n]:g}" for n in RANK_PATH) + f" ({card})")
+        if profile:
+            split_rank(model, reqs[0], f"rank, batch {batch}", card)
+            profile_request(rank, reqs[0], f"rank, batch {batch}", card)
+
+
+def phase_serve_vqa_generate(results, card: str, profile: bool):
+    """bf16 VQA generation through build_answer_fn (beam 3, q_len + 10,
+    length penalty -1) at batch 8 over right-padded questions of 5-12
+    tokens, fused decode on (the default): every serving kernel launches;
+    then generate_answers once through the synthetic tokenizer's text."""
+    import torch
+    from prismer_tpu_torch.models.vqa import (build_answer_fn,
+                                              generate_answers)
+    from prismer_tpu_torch.tokenizer import synthetic_tokenizer
+
+    cfg, model, _ = serve_setup()
+    answer = build_answer_fn(model)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    cgen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    reqs = []
+    for _ in range(3):
+        lengths = torch.randint(5, 13, (VQA_GEN_BATCH,), generator=gen)
+        reqs.append((raw_batch(cfg, VQA_GEN_BATCH, cgen, "cuda"),
+                     *vqa_questions(gen, lengths.tolist(), "cuda")))
+    answer(*reqs[0])                       # warm-up
+    torch.cuda.synchronize()
+    wrap = wrappers()
+    for fn in wrap.values():
+        fn.launches = 0
+    outs, times = timed_requests(
+        answer, [reqs[i % 3] for i in range(VQA_GEN_REQUESTS)])
+    counts = {name: fn.launches for name, fn in wrap.items()}
+    for n in SERVE_KERNELS:
+        results[n].setdefault("launches_per_request", {})[
+            f"vqa_generate_b{VQA_GEN_BATCH}"] = counts[n] / VQA_GEN_REQUESTS
+    for (_, ids, _), seqs in zip(reqs * 2, outs):
+        q = ids.shape[1]
+        expect(tuple(seqs.shape) == (VQA_GEN_BATCH, q + 10)
+               and torch.equal(seqs[:, :q], ids.long())
+               and bool(((seqs >= 0) & (seqs < cfg.decoder.vocab_size))
+                        .all()), "VQA generate output")
+    expect(torch.equal(outs[0], outs[3]), "same request gave other ids")
+    expect(all(counts[n] > 0 for n in SERVE_KERNELS),
+           f"VQA generate launches {counts}")
+    tok = synthetic_tokenizer()
+    words = ["is", "the", "cat", "on", "a", "mat", "red", "what", "there"]
+    questions = [" ".join(words[(i + j) % 9] for j in range(2 + i % 3))
+                 for i in range(VQA_GEN_BATCH)]
+    texts = generate_answers(answer, reqs[0][0], tok, questions)
+    expect(len(texts) == VQA_GEN_BATCH and all(isinstance(t, str)
+                                               for t in texts),
+           "generate_answers output")
+    log(f"  generate batch {VQA_GEN_BATCH}, questions of 5-12 tokens: "
+        f"ms/request over {VQA_GEN_REQUESTS}: "
+        + " ".join(f"{t:.1f}" for t in times) + f", mean "
+        f"{sum(times) / len(times):.1f}; launches per request "
+        + ", ".join(f"{n}={counts[n] / VQA_GEN_REQUESTS:g}"
+                    for n in SERVE_KERNELS) + f" ({card})")
+    log(f"  generate_answers through the synthetic tokenizer: {texts[:2]}")
+    if profile:
+        profile_request(answer, reqs[0], f"VQA generate, batch "
+                        f"{VQA_GEN_BATCH}", card)
+
+
+def synthetic_reference_checkpoint(cfg, seed: int, pretrain_res: int = 224):
+    """A reference 'pytorch_model.bin' state dict (expert_encoder.*,
+    text_decoder.* in the reference's layout) for `cfg`, the positional
+    embedding at pretrain_res, from numpy: weights N(0, 1/fan_in), LN and
+    BN scales near 1, small biases, N(0, 0.02) embedding tables."""
+    import numpy as np
+    import torch
+    g = np.random.default_rng(seed)
+    sd = {}
+
+    def put(key, shape, std, mean=0.0):
+        a = g.standard_normal(shape, dtype=np.float32) * np.float32(std)
+        sd[key] = torch.from_numpy(a + np.float32(mean))
+
+    def lin(key, out_d, in_d):
+        put(f"{key}.weight", (out_d, in_d), in_d ** -0.5)
+        put(f"{key}.bias", (out_d,), 0.02)
+
+    def ln(key, d):
+        put(f"{key}.weight", (d,), 0.02, 1.0)
+        put(f"{key}.bias", (d,), 0.02)
+
+    def conv(key, o, i, k):
+        put(f"{key}.weight", (o, i, k, k), (i * k * k) ** -0.5)
+
+    v, c = cfg.vision, cfg.decoder
+    w, d = v.width, c.hidden_size
+    grid = pretrain_res // v.patch_size
+    put("expert_encoder.positional_embedding", (grid * grid, w), w ** -0.5)
+    ln("expert_encoder.ln_pre", w)
+    ln("expert_encoder.ln_post", w)
+    conv("expert_encoder.conv1.rgb", w, 3, v.patch_size)
+    put("expert_encoder.instance_embedding", (v.num_instance_slots, w),
+        w ** -0.5)
+    widths = (w // 8, w // 4, w // 2, w)
+    for exp, ch in v.experts:
+        if exp == "rgb":
+            continue
+        p, prev = f"expert_encoder.conv1.{exp}", ch
+        for j, (ci, bi) in enumerate(zip((1, 4, 7, 10), (2, 5, 8, 11))):
+            conv(f"{p}.{ci}", widths[j], prev, 3)
+            ln(f"{p}.{bi}", widths[j])
+            put(f"{p}.{bi}.running_mean", (widths[j],), 0.02)
+            put(f"{p}.{bi}.running_var", (widths[j],), 0.02, 1.0)
+            sd[f"{p}.{bi}.num_batches_tracked"] = torch.tensor(0)
+            prev = widths[j]
+        conv(f"{p}.13", w, w, 1)
+    for i in range(v.layers):
+        p = f"expert_encoder.transformer.resblocks.{i}"
+        put(f"{p}.0.attn.in_proj_weight", (3 * w, w), w ** -0.5)
+        put(f"{p}.0.attn.in_proj_bias", (3 * w,), 0.02)
+        lin(f"{p}.0.attn.out_proj", w, w)
+        ln(f"{p}.0.ln_1", w)
+        ln(f"{p}.0.ln_2", w)
+        lin(f"{p}.0.mlp.c_fc", 4 * w, w)
+        lin(f"{p}.0.mlp.c_proj", w, 4 * w)
+        lin(f"{p}.1.adaptor.down_proj", w, w)
+        lin(f"{p}.1.adaptor.up_proj", w, w)
+        ln(f"{p}.1.adaptor_ln", w)
+    put("expert_encoder.resampler.latents", (v.resampler_latents, w),
+        w ** -0.5)
+    for i in range(v.resampler_layers):
+        p = f"expert_encoder.resampler.perceiver_blocks.{i}"
+        put(f"{p}.attn.in_proj_weight", (3 * w, w), w ** -0.5)
+        put(f"{p}.attn.in_proj_bias", (3 * w,), 0.02)
+        lin(f"{p}.attn.out_proj", w, w)
+        for nm in ("ln_1", "ln_2", "ln_ff"):
+            ln(f"{p}.{nm}", w)
+        lin(f"{p}.mlp.c_fc", 4 * w, w)
+        lin(f"{p}.mlp.c_proj", w, 4 * w)
+    emb = "text_decoder.roberta.embeddings"
+    for nm, rows in (("word_embeddings", c.vocab_size),
+                     ("position_embeddings", c.max_position_embeddings),
+                     ("token_type_embeddings", c.type_vocab_size)):
+        put(f"{emb}.{nm}.weight", (rows, d), 0.02)
+    ln(f"{emb}.LayerNorm", d)
+
+    def block(p):
+        for nm in ("query", "key", "value"):
+            lin(f"{p}.attention.self.{nm}", d, d)
+        lin(f"{p}.attention.output.dense", d, d)
+        ln(f"{p}.attention.output.LayerNorm", d)
+        lin(f"{p}.intermediate.dense", c.intermediate_size, d)
+        lin(f"{p}.output.dense", d, c.intermediate_size)
+        ln(f"{p}.output.LayerNorm", d)
+
+    for i in range(c.num_hidden_layers):
+        p = f"text_decoder.roberta.encoder.layer.{i}"
+        block(f"{p}.0")
+        for nm in ("query", "key", "value"):
+            lin(f"{p}.1.self.{nm}", d,
+                d if nm == "query" else c.vision_hidden_size)
+        lin(f"{p}.1.output.dense", d, d)
+        ln(f"{p}.1.output.LayerNorm", d)
+        lin(f"{p}.2.adaptor.down_proj", d, d)
+        lin(f"{p}.2.adaptor.up_proj", d, d)
+        ln(f"{p}.2.adaptor_ln", d)
+    block("text_decoder.roberta.encoder.output_layer")
+    lin("text_decoder.lm_head.dense", d, d)
+    ln("text_decoder.lm_head.layer_norm", d)
+    put("text_decoder.lm_head.bias", (c.vocab_size,), 0.02)
+    return sd
+
+
+def phase_convert(results, card: str):
+    """A synthetic reference checkpoint of Prismer-BASE (six experts,
+    pretrained at 224 px) written with torch.save, converted by
+    `python -m prismer_tpu_torch.convert.cli --kind prismer` for 480 px,
+    loaded into a bf16 port model on the card, which serves one caption
+    request through build_generate_fn."""
+    import shutil
+    import torch
+    from prismer_tpu_torch.convert.cli import load_npz_into
+    from prismer_tpu_torch.models.caption import build_generate_fn
+    from prismer_tpu_torch.models.prismer import Prismer
+
+    cfg = slice_config("bfloat16")
+    work = ROOT / "build" / "convert_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        sd = synthetic_reference_checkpoint(cfg, SEED)
+        src, dst = work / "pytorch_model.bin", work / "prismer_base.npz"
+        torch.save(sd, src)
+        n_sd = sum(t.numel() for t in sd.values())
+        del sd
+        made = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "prismer_tpu_torch.convert.cli",
+             "--kind", "prismer", "--src", str(src), "--dst", str(dst),
+             "--prismer_model", "prismer_base", "--experts", "full",
+             "--image_resolution", "480"], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
+        conv_s = time.perf_counter() - t0
+        expect(res.returncode == 0, f"convert CLI failed: {res.stderr[-2000:]}")
+        model = Prismer(cfg, device="meta").to_empty(device="cuda").eval()
+        t0 = time.perf_counter()
+        total, missing = load_npz_into(model, str(dst))
+        load_s = time.perf_counter() - t0
+        sizes = (src.stat().st_size, dst.stat().st_size)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  checkpoint of {n_sd / 1e6:.1f} M values ({sizes[0] / 2**30:.2f} "
+        f"GiB) made in {made:.1f} s; CLI conversion {conv_s:.1f} s "
+        f"(process included) to {sizes[1] / 2**30:.2f} GiB .npz; loaded in "
+        f"{load_s:.1f} s; uncovered leaves {len(missing)} of {total}: "
+        f"{missing[:5]}")
+    expect(not missing, f"uncovered leaves {missing[:10]}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    raw = raw_batch(cfg, 2, gen, "cuda")
+    prompt = torch.tensor([[0, 250, 1000, 7]] * 2, dtype=torch.int32,
+                          device="cuda")
+    seqs = build_generate_fn(model)(raw, prompt, torch.ones_like(prompt))
+    torch.cuda.synchronize()
+    check_requests([(raw, prompt)], [seqs], cfg.decoder.vocab_size)
+    log(f"  caption from the converted weights: {seqs[0].tolist()} ({card})")
+    del model
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phases 9 and 10: the caption fine-tune step
 # ---------------------------------------------------------------------------
 
@@ -3231,6 +3685,12 @@ def main(argv=None) -> int:
                lambda r: phase_serve_large(r, card, args.profile)),
               ("serve huge",
                lambda r: phase_serve_huge(r, card, args.profile)),
+              ("vqa parity", phase_vqa_parity),
+              ("serve vqa rank",
+               lambda r: phase_serve_vqa_rank(r, card, args.profile)),
+              ("serve vqa generate",
+               lambda r: phase_serve_vqa_generate(r, card, args.profile)),
+              ("convert", lambda r: phase_convert(r, card)),
               ("train parity", phase_train_parity),
               ("train", lambda r: phase_train(r, card, args.profile)),
               ("segment parity", phase_segment_parity),

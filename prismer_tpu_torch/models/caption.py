@@ -1,25 +1,50 @@
 """Captioning task head, ported from prismer_tpu/models/caption.py: the
 training loss (captions of at most 30 tokens, pads and prompt positions
-masked to -100, mean of per-sample summed label-smoothed CE) and generation
-(beam 3, max_length 20, min_length 8).
+masked to -100, mean of per-sample summed label-smoothed CE), generation
+(beam 3, max_length 20, min_length 8) and rank inference over a candidate
+list (candidates ' <ans></s>', lowercased).
+
+The serving entry points `build_generate_fn` and `build_rank_fn` take a raw
+expert batch and run on the device of their inputs; the string-level
+helpers (`generate_captions`, `rank_captions`) tokenize on the host around
+a function they built.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from prismer_tpu_torch.data.device import materialize_experts
-from prismer_tpu_torch.models.generation import beam_search
+from prismer_tpu_torch.models.generation import beam_search, rank_answers
 from prismer_tpu_torch.models.prismer import (Prismer, compute_dtype,
                                               prepare_serving_variables)
+from prismer_tpu_torch.tokenizer import BPETokenizer
 
 CAPTION_MAX_TOKENS = 30
 GEN_NUM_BEAMS = 3
 GEN_MAX_LENGTH = 20
 GEN_MIN_LENGTH = 8
+
+
+def prefix_prompt_ids(tokenizer: BPETokenizer, prefix: str, batch: int
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """The tokenized prefix without its trailing </s>, repeated over the
+    batch: (ids, mask), each (batch, P) int32."""
+    enc = tokenizer([prefix], padding="longest")
+    ids = enc.input_ids[:, :-1]
+    mask = enc.attention_mask[:, :-1]
+    return (np.repeat(ids, batch, axis=0), np.repeat(mask, batch, axis=0))
+
+
+def prefix_length(tokenizer: BPETokenizer, prefix: str) -> int:
+    """Caption positions the prefix covers (masked out of the loss):
+    len(encode(prefix)) - 1 drops the </s>."""
+    if not prefix:
+        return 0
+    return len(tokenizer.encode(prefix)) - 1
 
 
 def caption_targets(input_ids: torch.Tensor, attention_mask: torch.Tensor,
@@ -81,6 +106,48 @@ def build_generate_fn(model: Prismer, *, num_beams: int = GEN_NUM_BEAMS,
     return fn
 
 
+def build_rank_fn(model: Prismer, *, k_test: int):
+    """The rank serving entry point: raw expert batch -> best answer index.
+
+    fn(experts_raw, prompt_ids, prompt_mask, answer_ids, answer_mask,
+    instance_slots=None) runs materialize_experts -> encode -> rank_answers
+    on the device of its inputs and returns (B,) int64 indices into the
+    (A, La) answer list."""
+    dtype = compute_dtype(model.cfg)
+    pad = model.cfg.decoder.pad_token_id
+
+    @torch.no_grad()
+    def fn(experts_raw: Dict[str, Any], prompt_ids: torch.Tensor,
+           prompt_mask: torch.Tensor, answer_ids: torch.Tensor,
+           answer_mask: torch.Tensor,
+           instance_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+        experts = materialize_experts(experts_raw, dtype)
+        enc = model.encode(experts, instance_slots)
+        return rank_answers(model, enc, prompt_ids, prompt_mask, answer_ids,
+                            answer_mask, k_test=k_test, pad_token_id=pad)
+
+    return fn
+
+
+def to_expert_device(experts_raw: Dict[str, Any], *arrays: np.ndarray):
+    """numpy arrays as tensors on the device of the expert batch."""
+    device = experts_raw["rgb"].device
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def generate_captions(generate: Callable, experts_raw: Dict[str, Any],
+                      tokenizer: BPETokenizer, prefix: str = "",
+                      instance_slots: Optional[torch.Tensor] = None
+                      ) -> List[str]:
+    """Captions as strings, the prefix stripped; `generate` is
+    `build_generate_fn(model)` (its serving state built once per model)."""
+    batch = experts_raw["rgb"].shape[0]
+    ids, mask = to_expert_device(
+        experts_raw, *prefix_prompt_ids(tokenizer, prefix, batch))
+    seqs = generate(experts_raw, ids, mask, instance_slots)
+    return decode_captions(seqs.cpu(), tokenizer, prefix)
+
+
 def decode_captions(seqs, tokenizer, prefix: str) -> List[str]:
     """Decode with any tokenizer that has `decode(ids,
     skip_special_tokens=True)` and strip the prefix."""
@@ -90,3 +157,31 @@ def decode_captions(seqs, tokenizer, prefix: str) -> List[str]:
         text = tokenizer.decode(row, skip_special_tokens=True)
         captions.append(text[len(prefix) + space:])
     return captions
+
+
+def tokenize_answer_list(tokenizer: BPETokenizer, answers: Sequence[str],
+                         lowercase: bool = True
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """Candidate answers as ' <ans></s>' (captioning) or ' <Ans></s>'
+    capitalized (VQA), padded to the longest: (ids, mask) (A, La) int32."""
+    if lowercase:
+        texts = [" " + a.lower() + tokenizer.eos_token for a in answers]
+    else:
+        texts = [" " + a.capitalize() + tokenizer.eos_token for a in answers]
+    enc = tokenizer(texts, padding="longest", add_special_tokens=False)
+    return enc.input_ids, enc.attention_mask
+
+
+def rank_captions(rank: Callable, experts_raw: Dict[str, Any],
+                  tokenizer: BPETokenizer, answers: Sequence[str],
+                  prefix: str = "",
+                  instance_slots: Optional[torch.Tensor] = None
+                  ) -> np.ndarray:
+    """Classification-style rank inference: (B,) indices into `answers`;
+    `rank` is `build_rank_fn(model, k_test=...)` (32 in the reference)."""
+    batch = experts_raw["rgb"].shape[0]
+    ans = tokenize_answer_list(tokenizer, answers, lowercase=True)
+    prompt = prefix_prompt_ids(tokenizer, prefix, batch)
+    best = rank(experts_raw, *to_expert_device(experts_raw, *prompt, *ans),
+                instance_slots)
+    return best.cpu().numpy()

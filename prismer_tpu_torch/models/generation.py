@@ -19,6 +19,8 @@ Cross K/V are per sample and never move. Two decode paths, as in JAX:
   * per layer: the self cache is reordered by the flat beam permutation
     (index_select on the row axis), and lazy_top_candidates selects from
     the logits.
+
+`rank_answers` is the two-pass rank inference over a candidate list.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import numpy as np
 import torch
 
 from prismer_tpu_torch.models.prismer import Prismer
-from prismer_tpu_torch.models.roberta import use_fused_decode
+from prismer_tpu_torch.models.roberta import (num_valid_targets,
+                                              use_fused_decode)
 from prismer_tpu_torch.ops.beam_update import NEG_INF, beam_update
 from prismer_tpu_torch.ops.lm_topk import lm_topk
 
@@ -157,3 +160,70 @@ def beam_search(model: Prismer, encoder_hidden_states: torch.Tensor,
     best = all_scores.argmax(dim=1)
     rows = torch.arange(b, device=dev)
     return all_seqs[rows, best].long(), all_scores[rows, best]
+
+
+def top_k_lowest_first(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (B, k) of the k largest values of each row of x (B, A),
+    equal values in index order (jax.lax.top_k's order; torch.topk on CUDA
+    promises no order among equals)."""
+    return torch.sort(x, dim=1, descending=True, stable=True)[1][:, :k]
+
+
+@torch.no_grad()
+def rank_candidates(model: Prismer, encoder_hidden_states: torch.Tensor,
+                    prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,
+                    first_tokens: torch.Tensor, k_test: int) -> torch.Tensor:
+    """Rank pass 1: (B, k_test) int64 indices of the answers whose first
+    token (first_tokens (A,)) is likeliest after the prompt, read from the
+    softmax of the logits at the prompt's last column (a pad for a
+    right-padded prompt, as in JAX and the reference); equal
+    probabilities, as answers sharing a first token get, in index order."""
+    logits = model.decode_logits(prompt_ids, prompt_mask,
+                                 encoder_hidden_states)
+    probs = torch.softmax(logits[:, -1, :], dim=-1)
+    return top_k_lowest_first(probs[:, first_tokens.long()], k_test)
+
+
+@torch.no_grad()
+def score_candidates(model: Prismer, encoder_hidden_states: torch.Tensor,
+                     prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,
+                     answer_ids: torch.Tensor, answer_mask: torch.Tensor,
+                     candidates: torch.Tensor, pad_token_id: int = 1
+                     ) -> torch.Tensor:
+    """Rank pass 2: (B, k) fp32 scores of the candidates (B, k) (indices
+    into the (A, La) answers): the decoder over [prompt ; answer], the
+    encoder states untiled (cross_groups = k); a candidate's score is its
+    label-smoothed loss over the answer tokens, negated and divided by
+    their count."""
+    b, p = prompt_ids.shape
+    k = candidates.shape[1]
+    la = answer_ids.shape[1]
+    full_ids = torch.cat([prompt_ids[:, None, :].expand(b, k, p),
+                          answer_ids[candidates].to(prompt_ids.dtype)],
+                         dim=2).reshape(b * k, p + la)
+    full_mask = torch.cat([prompt_mask[:, None, :].expand(b, k, p),
+                           answer_mask[candidates].to(prompt_mask.dtype)],
+                          dim=2).reshape(b * k, p + la)
+    targets = torch.where(full_ids == pad_token_id,
+                          torch.full_like(full_ids, -100), full_ids)
+    targets[:, :p] = -100
+    loss = model.decode_loss(full_ids, full_mask, encoder_hidden_states,
+                             targets, cross_groups=k)
+    denom = num_valid_targets(targets).clamp_min(1)
+    return (-loss / denom).reshape(b, k)
+
+
+def rank_answers(model: Prismer, encoder_hidden_states: torch.Tensor,
+                 prompt_ids: torch.Tensor, prompt_mask: torch.Tensor,
+                 answer_ids: torch.Tensor, answer_mask: torch.Tensor, *,
+                 k_test: int, pad_token_id: int = 1) -> torch.Tensor:
+    """Two-pass rank inference (`rank_candidates`, then `score_candidates`)
+    over the answers (A, La), tokenized without added specials and ending
+    in '</s>'; returns (B,) int64 indices of the best-scored candidate
+    (the first among equals)."""
+    candidates = rank_candidates(model, encoder_hidden_states, prompt_ids,
+                                 prompt_mask, answer_ids[:, 0], k_test)
+    scores = score_candidates(model, encoder_hidden_states, prompt_ids,
+                              prompt_mask, answer_ids, answer_mask,
+                              candidates, pad_token_id)
+    return candidates.gather(1, scores.argmax(dim=1)[:, None])[:, 0]

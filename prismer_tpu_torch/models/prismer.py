@@ -53,22 +53,29 @@ class Prismer(nn.Module):
 
     def decode_logits(self, input_ids: torch.Tensor,
                       attention_mask: torch.Tensor,
-                      encoder_hidden_states: torch.Tensor) -> torch.Tensor:
-        """Full-sequence decoder logits (B, L, V) fp32."""
+                      encoder_hidden_states: torch.Tensor,
+                      cross_groups: int = 1) -> torch.Tensor:
+        """Full-sequence decoder logits (B, L, V) fp32.
+
+        cross_groups > 1: the input rows are G candidates per sample while
+        encoder_hidden_states stays untiled (B, L, D), so cross K/V are
+        projected once per sample (rank pass 2)."""
         return self.text_decoder(input_ids, attention_mask,
-                                 encoder_hidden_states)
+                                 encoder_hidden_states,
+                                 cross_groups=cross_groups)
 
     def decode_loss(self, input_ids: torch.Tensor,
                     attention_mask: torch.Tensor,
                     encoder_hidden_states: torch.Tensor,
                     targets: torch.Tensor, train: bool = False,
-                    generator: Optional[torch.Generator] = None
-                    ) -> torch.Tensor:
+                    generator: Optional[torch.Generator] = None,
+                    cross_groups: int = 1) -> torch.Tensor:
         """Per-sample summed label-smoothed CE (B,) fp32 (through the
-        fused LM-head + CE kernels when ops/fused_ce.use_fused_ce says so)."""
+        fused LM-head + CE kernels when ops/fused_ce.use_fused_ce says so);
+        cross_groups as in `decode_logits`."""
         return self.text_decoder.per_sample_loss(
             input_ids, attention_mask, encoder_hidden_states, targets, train,
-            generator)
+            generator, cross_groups)
 
     def forward_loss(self, experts: Dict[str, Any], input_ids: torch.Tensor,
                      attention_mask: torch.Tensor, targets: torch.Tensor,

@@ -5,6 +5,10 @@ Each decoder layer runs self-attn -> cross-attn -> adaptor -> MLP; a final
 layer without cross-attention finishes the stack; the LM head is dense ->
 gelu -> LayerNorm -> tied-embedding projection + bias, accumulated in fp32.
 
+Full-sequence passes take `cross_groups` G: G input rows per sample of
+untiled encoder states, cross K/V projected once per sample (rank pass 2,
+`SelfAttentionCore.attend_grouped_full`).
+
 Training (`per_sample_loss(train=True)`): dropout after the embeddings' LN
 and after each AttentionOutput dense (none on attention probabilities, as
 in JAX), each layer rematerialised, and the loss through the fused LM-head
@@ -30,6 +34,7 @@ Two cached decode paths, as in JAX (`set_fused_decode`):
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -183,6 +188,29 @@ class SelfAttentionCore(nn.Module):
         out = out.reshape(b, h, beams, p, dh).permute(0, 2, 1, 3, 4)
         return merge_heads(out.reshape(n, h, p, dh))
 
+    def attend_grouped_full(self, hidden: torch.Tensor,
+                            kv_source: torch.Tensor,
+                            groups: int) -> torch.Tensor:
+        """Full-sequence cross-attention of (B*G, P, D) queries, G rows per
+        sample, against K/V projected once per sample from kv_source
+        (B, L, D): rank pass 2 scores G candidate answers per sample without
+        tiling the encoder states. No key mask (encoder states are
+        full-length).
+
+        JAX divides the fp32 scores by sqrt(Dh); `attend_grouped`
+        multiplies them by its reciprocal, which is the same fp32 value only
+        when sqrt(Dh) is a power of two (Dh 64 in every registry decoder),
+        so other head widths are refused."""
+        n = hidden.shape[0]
+        b = kv_source.shape[0]
+        if n != b * groups:
+            raise ValueError(f"{n} query rows for {b} samples x {groups}")
+        dh = self.query.out_features // self.num_heads
+        if math.frexp(math.sqrt(dh))[0] != 0.5:
+            raise ValueError(f"head width {dh}: sqrt is not a power of two")
+        k, v = self.project_kv(kv_source)                   # (B, H, L, Dh)
+        return self.attend_grouped(hidden, k, v, groups)
+
 
 class AttentionOutput(nn.Module):
     """dense -> dropout -> LayerNorm(+ residual)."""
@@ -238,15 +266,21 @@ class DecoderLayer(nn.Module):
 
     def forward(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor],
-                dropout_seed: Optional[int] = None) -> torch.Tensor:
+                dropout_seed: Optional[int] = None,
+                cross_groups: int = 1) -> torch.Tensor:
         """Full-sequence pass; with a dropout seed (training) the three
         (two without cross-attention) dropout sites draw their masks, in
-        order, from that seed."""
+        order, from that seed. cross_groups > 1: the rows are that many
+        per sample of the untiled encoder states (attend_grouped_full)."""
         drop = Dropout(self.dropout_rate, dropout_seed, hidden.device)
         h = self.self_attn(hidden, hidden, attention_mask, causal=True)
         hidden = self.self_out(h, hidden, drop)
         if self.with_cross:
-            h = self.cross_attn(hidden, encoder_hidden_states)
+            if cross_groups > 1:
+                h = self.cross_attn.attend_grouped_full(
+                    hidden, encoder_hidden_states, cross_groups)
+            else:
+                h = self.cross_attn(hidden, encoder_hidden_states)
             hidden = self.adaptor(self.cross_out(h, hidden, drop))
         return self.mlp(hidden, drop)
 
@@ -354,10 +388,13 @@ class RobertaCausalDecoder(nn.Module):
 
     def _trunk(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                encoder_hidden_states: torch.Tensor, train: bool,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+               generator: Optional[torch.Generator],
+               cross_groups: int = 1) -> torch.Tensor:
         """Embeddings and every layer. In training one dropout seed per
         site group is drawn from `generator` before any layer runs, and
-        each layer is rematerialised with its seed as an argument."""
+        each layer is rematerialised with its seed as an argument.
+        cross_groups > 1: G input rows per sample of the untiled encoder
+        states (rank pass 2)."""
         c = self.cfg
         layers = self.cross_layers() + [self.output_layer]
         seeds = [None] * (len(layers) + 1)
@@ -373,32 +410,37 @@ class RobertaCausalDecoder(nn.Module):
         for layer, seed in zip(layers, seeds[1:]):
             src = enc if layer.with_cross else None
             if train:
-                hidden = remat(layer, hidden, attention_mask, src, seed)
+                hidden = remat(layer, hidden, attention_mask, src, seed,
+                               cross_groups)
             else:
-                hidden = layer(hidden, attention_mask, src)
+                hidden = layer(hidden, attention_mask, src, None,
+                               cross_groups)
         return hidden
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                cross_groups: int = 1) -> torch.Tensor:
         """Full-sequence logits (B, L, V) fp32."""
         hidden = self._trunk(input_ids, attention_mask,
-                             encoder_hidden_states, train, generator)
+                             encoder_hidden_states, train, generator,
+                             cross_groups)
         return self.lm_head(hidden, self.embeddings.word_embeddings)
 
     def per_sample_loss(self, input_ids: torch.Tensor,
                         attention_mask: torch.Tensor,
                         encoder_hidden_states: torch.Tensor,
                         targets: torch.Tensor, train: bool = False,
-                        generator: Optional[torch.Generator] = None
-                        ) -> torch.Tensor:
+                        generator: Optional[torch.Generator] = None,
+                        cross_groups: int = 1) -> torch.Tensor:
         """Per-sample summed label-smoothed CE (B,) fp32: through the fused
         LM-head + CE kernels when `use_fused_ce(train, device)`, else from
         the materialised logits (`label_smoothed_loss`)."""
         from prismer_tpu_torch.ops.fused_ce import (fused_label_smoothed_loss,
                                                     use_fused_ce)
         hidden = self._trunk(input_ids, attention_mask,
-                             encoder_hidden_states, train, generator)
+                             encoder_hidden_states, train, generator,
+                             cross_groups)
         if use_fused_ce(train, hidden.device):
             h = self.lm_head.features(hidden).to(self.dtype)
             emb = self.embeddings.word_embeddings.to(self.dtype)
@@ -577,3 +619,9 @@ def label_smoothed_loss(logits: torch.Tensor, labels: torch.Tensor,
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     per_tok = (1.0 - smoothing) * nll + smoothing * (-logp.mean(-1))
     return torch.where(valid, per_tok, torch.zeros_like(per_tok)).sum(1)
+
+
+def num_valid_targets(labels: torch.Tensor) -> torch.Tensor:
+    """Supervised positions per sample of the unshifted labels (B,) int32:
+    the rank-inference normaliser."""
+    return (labels != -100).sum(dim=1, dtype=torch.int32)

@@ -63,11 +63,16 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
             yield path, value
 
 
+def save_tree_npz(path: str, tree: Dict[str, Any]) -> None:
+    """Flat .npz of a nested tree of arrays, keyed as the JAX package keys
+    it (`jax.tree_util.keystr` paths)."""
+    np.savez(path, **dict(_flatten(tree)))
+
+
 def save_params_npz(path: str, params: Dict[str, torch.Tensor]) -> None:
     """Flat .npz of fp32 params in the JAX package's key format and layout;
     `params` maps port names to tensors (e.g. TrainState.params_fp32())."""
-    tree = to_jax_variables(params)["params"]
-    np.savez(path, **dict(_flatten(tree)))
+    save_tree_npz(path, to_jax_variables(params)["params"])
 
 
 def load_params_npz(path: str) -> Dict[str, Any]:

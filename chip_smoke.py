@@ -37,9 +37,25 @@ the fp32 Swin-L Mask2Former at 480 px on the card against the CPU, and the
 generator's entry point (`prismer_tpu_torch.experts.generate.main`) over 37
 synthetic PNGs at batch 16, with TF32 at torch's defaults (the
 generator pins fp32 itself), which must launch the deformable-attention
-kernel 18 times and write every label map at its image's size. Exits
-non-zero if any phase fails or if there is no CUDA device; the last line of
-standard output is a JSON object with the device.
+kernel 18 times and write every label map at its image's size. The data
+path from files on disk (ROADMAP §1 items 5-6) sits between the train and
+the segmentation phases: "jpeg" (the port's C++ JPEG decoder, built with
+g++, decodes every fixture of tests/data/jpeg to the sha256 that Pillow
+gave, and the host's median decode ms of each 640x480 fixture), "data" (a
+COCO-Karpathy tree of 64 train and 16 test records made from the 640x480
+fixtures, with label PNGs for the six experts and their sidecars, read by
+`Caption(train=True)` at 480 px through `create_loader` at batch 16 with 1
+and min(8, cores) workers: records/s and every batch's keys, shapes and
+dtypes), "train from files" (five bf16 steps of the BASE train step fed by
+that loader, captions tokenized as cli/train_caption.py does: ms/step,
+images/s and the device's idle share beside the same steps on one fixed
+batch), "eval from files" (`Caption(train=False)` at batch 8 through
+`build_generate_fn`, `decode_captions` and `coco_caption_eval`: 16
+distinct image ids, finite scores), and after "segment", "segment jpeg"
+(the generator over 4 fixtures as .jpg and the same pixels as PNG: equal
+label maps). Exits non-zero if any phase fails or if there is no CUDA
+device; the last line of standard output is a JSON object with the
+device.
 
 The slice: Prismer-BASE, all six experts, 480 px, bf16; serving with beam
 3, max length 20, min length 8, 4-token prompt, batch 8 and 5; fine-tuning
@@ -96,6 +112,7 @@ autograd backward), else null; the port itself never calls it.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import math
 import re
@@ -3171,6 +3188,7 @@ def phase_train(results, card: str, profile: bool):
     batch16 = caption_batch(cfg, 16, gen, "cuda")
     _, times16 = timed_steps(step, state, batch16, 5)
     ms16 = sum(times16[2:]) / len(times16[2:])
+    _FILES["fixed_ms16"] = ms16
     log(f"  train step after 2 warm-up steps: batch 4 {ms4:.1f} ms/step "
         f"({' '.join(f'{t:.1f}' for t in times[2:])}), {4000.0 / ms4:.1f} "
         f"images/s; batch 16 {ms16:.1f} ms/step "
@@ -3181,6 +3199,389 @@ def phase_train(results, card: str, profile: bool):
         split_train_step(state, batch, card)
         profile_request(lambda: step(state, batch), (), "train step, batch 4",
                         card)
+
+
+# ---------------------------------------------------------------------------
+# the data path from files on disk: JPEG decoding, the caption dataset and
+# loader, the train step and caption evaluation fed by them
+# ---------------------------------------------------------------------------
+
+JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
+JPEG_RUNS = 50
+FILES_TRAIN, FILES_TEST = 64, 16
+FILES_BATCH, FILES_EVAL_BATCH = 16, 8
+FILES_STEPS = 5
+FILES_PREFIX = "A picture of"
+FILES_EXPERTS = ("depth", "normal", "seg_coco", "edge", "obj_detection",
+                 "ocr_detection")
+_FILES = {}
+
+
+def host_cpu() -> str:
+    """The host's CPU model as /proc/cpuinfo names it and the cores this
+    process may use."""
+    import os
+    name = "unknown"
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return f"CPU {name}, {len(os.sched_getaffinity(0))} cores"
+
+
+def big_fixtures():
+    """The 640 x 480 JPEG fixtures, by name."""
+    exp = json.loads((JPEG_FIXTURES / "expected.json").read_text())["files"]
+    return sorted(n for n, e in exp.items() if e["shape"] == [480, 640, 3])
+
+
+def phase_jpeg(results, card: str):
+    """The port's host JPEG decoder: built with g++ from the checkout, every
+    fixture decoded to the sha256 Pillow gave (tests/data/jpeg/
+    expected.json, written where Pillow is), then the median decode ms of
+    each 640 x 480 fixture over JPEG_RUNS runs on the host's CPU."""
+    import hashlib
+
+    from prismer_tpu_torch import native
+    t0 = time.perf_counter()
+    lib = native.build()
+    log(f"  built {lib.relative_to(ROOT)} with g++ in "
+        f"{time.perf_counter() - t0:.1f} s")
+    expected = json.loads((JPEG_FIXTURES / "expected.json").read_text())
+    for name, e in sorted(expected["files"].items()):
+        px = native.decode_jpeg((JPEG_FIXTURES / name).read_bytes())
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        expect(list(px.shape) == e["shape"] and digest == e["sha256"],
+               f"{name}: {px.shape} sha256 {digest[:12]}, Pillow gave "
+               f"{e['shape']} {e['sha256'][:12]}")
+    log(f"  {len(expected['files'])} fixtures decode to the pixels of Pillow "
+        f"{expected['pillow']} / libjpeg-turbo {expected['libjpeg_turbo']} "
+        f"(sha256 equal)")
+    for name in big_fixtures():
+        data = (JPEG_FIXTURES / name).read_bytes()
+        times = []
+        for _ in range(JPEG_RUNS):
+            t0 = time.perf_counter()
+            native.decode_jpeg(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        log(f"  decode {name} ({len(data)} bytes): median "
+            f"{statistics.median(times):.2f} ms, min {min(times):.2f} ms over "
+            f"{JPEG_RUNS} runs ({host_cpu()}; {card})")
+
+
+def coco_image(split: str, image_id: int) -> str:
+    return f"{split}/COCO_{split}_{image_id:012d}.jpg"
+
+
+def write_label_files(label_root: Path, image: str, rng, w: int, h: int):
+    """Random label maps for the six BASE experts at the image's size, as
+    the generators lay them out: piecewise-constant id maps (16 px cells),
+    smooth dense maps, an instance -> class .json for obj_detection and an
+    .npz word sidecar (under the .pt name) for ocr_detection."""
+    import numpy as np
+    from prismer_tpu_torch.data import png
+
+    def cells(hi, channels=0):
+        shape = (-(-h // 16), -(-w // 16)) + ((channels,) if channels else ())
+        small = rng.integers(0, hi, shape, dtype=np.uint8)
+        return np.ascontiguousarray(
+            small.repeat(16, 0).repeat(16, 1)[:h, :w])
+
+    stem = image[:-len(".jpg")]
+    maps = {"depth": cells(256), "normal": cells(256, 3), "edge": cells(256),
+            "seg_coco": cells(134), "obj_detection": cells(8),
+            "ocr_detection": cells(4)}
+    for exp, arr in maps.items():
+        path = label_root / exp / "vqav2" / f"{stem}.png"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        png.write_png(str(path), arr)
+    det = label_root / "obj_detection" / "vqav2" / f"{stem}.json"
+    det.write_text(json.dumps({str(i): int(rng.integers(0, 80))
+                               for i in range(8)}))
+    ocr = label_root / "ocr_detection" / "vqav2" / f"{stem}.pt"
+    with open(ocr, "wb") as f:
+        np.savez(f, **{str(i): rng.normal(size=64).astype(np.float32)
+                       for i in range(4)},
+                 **{f"text_{i}": f"word{i}" for i in range(4)})
+
+
+def check_batch(batch, size: int, res: int, train: bool) -> None:
+    """The keys, shapes and dtypes of a collated caption batch."""
+    import numpy as np
+    ex = batch["experts"]
+    want = {"rgb": ((size, res, res, 3), np.uint8),
+            "depth": ((size, 224, 224, 1), np.float32),
+            "normal": ((size, 224, 224, 3), np.float32),
+            "edge": ((size, 224, 224, 1), np.float32)}
+    expect(set(ex) == set(want) | {"seg_coco", "obj_detection",
+                                   "ocr_detection"}, f"batch keys {set(ex)}")
+    for k, (shape, dtype) in want.items():
+        expect(ex[k].shape == shape and ex[k].dtype == dtype,
+               f"{k}: {ex[k].shape} {ex[k].dtype}, want {shape} {dtype}")
+    for k in ("seg_coco", "obj_detection", "ocr_detection"):
+        keys = {"ids", "table"} | ({"instance"} if k == "obj_detection"
+                                   else set())
+        expect(set(ex[k]) == keys, f"{k} keys {set(ex[k])}")
+        expect(ex[k]["ids"].shape == (size, 224, 224)
+               and ex[k]["ids"].dtype == np.uint8, f"{k} ids")
+        expect(ex[k]["table"].shape == (size, 256, 64)
+               and ex[k]["table"].dtype == np.float32, f"{k} table")
+    if train:
+        expect(isinstance(batch["caption"], list)
+               and len(batch["caption"]) == size, "captions")
+    else:
+        expect(batch["index"].shape == (size,), "indices")
+
+
+def phase_data(results, card: str):
+    """A COCO-Karpathy tree in a temporary directory under build/: 64
+    train and 16 test records whose images are the 640 x 480 JPEG fixtures,
+    label PNGs for the six experts with their sidecars, the test split's
+    ground truth; `Caption(train=True)` at 480 px through the loader at
+    batch 16 with 1 worker and with min(8, cores) forked workers."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from prismer_tpu_torch.data import create_dataset, create_loader
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="files_", dir=ROOT / "build"))
+    atexit.register(shutil.rmtree, tmp, True)
+    _FILES["tree"] = tmp
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 21)
+    sources = [(JPEG_FIXTURES / n).read_bytes() for n in big_fixtures()]
+    words = "a man dog cat sits on the grass near red car with two".split()
+    train, test, gt = [], [], {"images": [], "annotations": []}
+    for i in range(FILES_TRAIN + FILES_TEST):
+        is_train = i < FILES_TRAIN
+        image = coco_image("train2014" if is_train else "val2014", 1000 + i)
+        path = tmp / "vqav2" / image
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(sources[i % len(sources)])
+        write_label_files(tmp / "labels", image, rng, 640, 480)
+        caption = " ".join(rng.choice(words, int(rng.integers(5, 12))))
+        if is_train:
+            train.append({"image": image, "caption": caption,
+                          "image_id": 1000 + i})
+        else:
+            test.append({"image": image, "image_id": 1000 + i})
+            gt["images"].append({"id": 1000 + i})
+            for j in range(5):
+                gt["annotations"].append({
+                    "image_id": 1000 + i, "id": 10 * i + j,
+                    "caption": " ".join(rng.choice(words, 8))})
+    for name, obj in (("coco_karpathy_train.json", train),
+                      ("coco_karpathy_test.json", test),
+                      ("coco_karpathy_test_gt.json", gt)):
+        (tmp / name).write_text(json.dumps(obj))
+    cfg = {"data_path": str(tmp), "label_path": str(tmp / "labels"),
+           "experts": list(FILES_EXPERTS), "image_resolution": 480,
+           "dataset": "coco", "prefix": FILES_PREFIX}
+    train_ds, test_ds = create_dataset("caption", cfg)
+    _FILES.update(cfg=cfg, train_ds=train_ds, test_ds=test_ds)
+    log(f"  tree: {len(train_ds)} train + {len(test_ds)} test records from "
+        f"{len(sources)} 640x480 JPEGs, 6 label PNGs + 2 sidecars each, "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    expect(len(train_ds) == FILES_TRAIN and len(test_ds) == FILES_TEST,
+           "record counts")
+
+    cores = len(os.sched_getaffinity(0))
+    for workers, n_batches in ((1, 2), (min(8, cores), FILES_TRAIN
+                                        // FILES_BATCH)):
+        loader = create_loader(train_ds, FILES_BATCH, num_workers=workers,
+                               train=True)
+        t0 = time.perf_counter()
+        n = 0
+        for batch in loader:
+            check_batch(batch, FILES_BATCH, 480, True)
+            n += 1
+            if n == n_batches:
+                break
+        dt = time.perf_counter() - t0
+        rate = n * FILES_BATCH / dt
+        log(f"  Caption(train) 480 px through the loader, batch "
+            f"{FILES_BATCH}, {workers} {loader.worker_type} worker(s): "
+            f"{n * FILES_BATCH} records in {dt:.2f} s = {rate:.1f} records/s "
+            f"({rate / workers:.1f} per worker; the first batch's start-up "
+            f"included; {host_cpu()}; {card})")
+    _FILES["workers"] = min(8, cores)
+
+
+def file_batch(batch, tokenizer, prompt_len: int, pad_id: int):
+    """A loader batch as the train step takes it, tokenized as
+    cli/train_caption.py's prepare_train_batch does."""
+    import torch
+    from prismer_tpu_torch.data import experts_to_device
+    from prismer_tpu_torch.models.caption import caption_targets
+    enc = tokenizer(batch["caption"], padding="longest", truncation=True,
+                    max_length=30)
+    ids = torch.from_numpy(enc.input_ids)
+    mask = torch.from_numpy(enc.attention_mask)
+    targets = caption_targets(ids, mask, prompt_len, pad_id)
+    return {"experts": experts_to_device(batch["experts"], "cuda"),
+            "input_ids": ids.cuda(), "attention_mask": mask.cuda(),
+            "targets": targets.cuda()}
+
+
+def busy_window(run) -> tuple:
+    """(wall ms, device-busy ms) of `run()` under torch.profiler: the sum of
+    the device ops' times on the one stream, as profile_request counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    return wall, sum(e.time_range.elapsed_us() for e in ops) / 1e3
+
+
+def phase_train_from_files(results, card: str):
+    """Five bf16 steps of the BASE train step at batch 16 fed by the
+    loader over the tree (min(8, cores) forked workers; the fifth batch
+    opens the second epoch), the first a warm-up; the other four under torch.profiler: ms/step, images/s and
+    the device's idle share; then four steps on one fixed batch (the last
+    one read) measured the same way, beside phase "train"'s batch-16
+    figure. Every training kernel must launch in the file-fed steps."""
+    import torch
+    from prismer_tpu_torch.data import create_loader
+    from prismer_tpu_torch.models.caption import prefix_length
+    from prismer_tpu_torch.tokenizer import synthetic_tokenizer
+    from prismer_tpu_torch.train import build_train_step
+
+    cfg = slice_config("bfloat16")
+    state = train_state(cfg, "cuda", TRAIN_LR)
+    step = build_train_step(state.model)
+    tok = synthetic_tokenizer()
+    prompt_len = prefix_length(tok, FILES_PREFIX)
+    pad = cfg.decoder.pad_token_id
+    loader = create_loader(_FILES["train_ds"], FILES_BATCH,
+                           num_workers=_FILES["workers"], train=True)
+
+    def epochs():   # 64 records make 4 batches: step 5 opens epoch 2
+        while True:
+            yield from loader
+
+    batches = epochs()
+    losses = []
+    last = {}
+
+    def steps(n, fixed=None):
+        nonlocal state
+        for _ in range(n):
+            b = fixed or file_batch(next(batches), tok, prompt_len, pad)
+            last["batch"] = b
+            state, metrics = step(state, b)
+            losses.append(metrics["loss"])
+
+    wrap = wrappers()
+    for fn in wrap.values():
+        fn.launches = 0
+    try:
+        steps(1)
+        wall, busy = busy_window(lambda: steps(FILES_STEPS - 1))
+    finally:
+        batches.close()
+    counts = {n: wrap[n].launches for n in TRAIN_KERNELS}
+    file_losses = [float(x) for x in losses]
+    fixed = last["batch"]
+    fwall, fbusy = busy_window(lambda: steps(FILES_STEPS - 1, fixed))
+    n = FILES_STEPS - 1
+    log(f"  bf16 BASE batch {FILES_BATCH} fed from files: losses "
+        + " ".join(f"{x:.4f}" for x in file_losses)
+        + "; launches " + ", ".join(f"{k}={v}" for k, v in counts.items()))
+    log(f"  steps 2-{FILES_STEPS} from the loader: {wall / n:.1f} ms/step, "
+        f"{FILES_BATCH * 1000.0 * n / wall:.1f} images/s, device busy "
+        f"{busy / n:.1f} ms/step, idle share {1 - busy / wall:.3f}; the same "
+        f"steps on one fixed batch: {fwall / n:.1f} ms/step, "
+        f"{FILES_BATCH * 1000.0 * n / fwall:.1f} images/s, idle share "
+        f"{1 - fbusy / fwall:.3f}; phase \"train\" batch 16: "
+        f"{_FILES.get('fixed_ms16', float('nan')):.1f} ms/step (CUDA events) "
+        f"({_FILES['workers']} loader workers; {host_cpu()}; {card})")
+    expect(all(map(math.isfinite, file_losses)), "train loss not finite")
+    expect(all(counts[k] > 0 for k in TRAIN_KERNELS),
+           f"train-from-files launches {counts}")
+    state.model.eval()
+    _FILES["model"] = state.model
+    del state, last, fixed
+    torch.cuda.empty_cache()
+
+
+def phase_eval_from_files(results, card: str):
+    """`Caption(train=False)` through the loader at batch 8, then
+    `build_generate_fn` (bf16, beam 3) on the model the file-fed steps
+    left, `decode_captions` and `coco_caption_eval` against the tree's
+    ground truth: 16 results with distinct image ids, finite scores, every
+    serving kernel launched."""
+    import shutil
+
+    import torch
+    from prismer_tpu_torch.data import create_loader, experts_to_device
+    from prismer_tpu_torch.evals.coco_eval import coco_caption_eval
+    from prismer_tpu_torch.models.caption import (build_generate_fn,
+                                                  decode_captions,
+                                                  prefix_prompt_ids)
+    from prismer_tpu_torch.tokenizer import synthetic_tokenizer
+
+    tmp = _FILES["tree"]
+    try:
+        model = _FILES.pop("model")
+        generate = build_generate_fn(model)
+        tok = synthetic_tokenizer()
+        test_ds = _FILES["test_ds"]
+        loader = create_loader(test_ds, FILES_EVAL_BATCH,
+                               num_workers=_FILES["workers"], train=False)
+        wrap = wrappers()
+        for fn in wrap.values():
+            fn.launches = 0
+        out = []
+        t0 = time.perf_counter()
+        for batch in loader:
+            check_batch(batch, FILES_EVAL_BATCH, 480, False)
+            experts = experts_to_device(batch["experts"], "cuda")
+            ids, mask = prefix_prompt_ids(tok, FILES_PREFIX,
+                                          len(batch["index"]))
+            seqs = generate(experts, torch.from_numpy(ids).cuda(),
+                            torch.from_numpy(mask).cuda())
+            captions = decode_captions(seqs.cpu(), tok, FILES_PREFIX)
+            for i, cap in zip(batch["index"].tolist(), captions):
+                image = test_ds.data_list[i]["image"]
+                image_id = int(image.split("/")[-1][:-len(".jpg")]
+                               .split("_")[-1])
+                out.append({"image_id": image_id,
+                            "caption": cap.capitalize() + "."})
+        dt = time.perf_counter() - t0
+        counts = {n: wrap[n].launches for n in SERVE_KERNELS}
+        scores = coco_caption_eval(str(tmp / "coco_karpathy_test_gt.json"),
+                                   out)
+        log(f"  {len(out)} captions from files in {dt:.2f} s "
+            f"(loader, generate, decode), e.g. {out[0]['caption']!r}; "
+            f"scores " + ", ".join(f"{k} {v:.4f}" for k, v in scores.items())
+            + "; launches " + ", ".join(f"{k}={v}" for k, v in counts.items())
+            + f" ({card})")
+        expect(len(out) == FILES_TEST
+               and len({r["image_id"] for r in out}) == FILES_TEST,
+               f"{len(out)} results, {len({r['image_id'] for r in out})} "
+               f"distinct image ids")
+        expect(all(math.isfinite(v) for v in scores.values())
+               and "CIDEr" in scores, f"scores {scores}")
+        expect(all(counts[k] > 0 for k in SERVE_KERNELS),
+               f"eval-from-files launches {counts}")
+    finally:
+        _FILES.pop("model", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3549,6 +3950,76 @@ def phase_segment(results, card: str, profile: bool, tf32_defaults):
     torch.cuda.empty_cache()
 
 
+SEG_JPEG_FIXTURES = ("photo_640x480_q90_420.jpg",
+                     "photo_640x480_progressive.jpg",
+                     "truncated_640x480.jpg", "restart_100x75_420.jpg")
+
+
+def phase_segment_jpeg(results, card: str):
+    """The generator's entry point over 4 JPEG fixtures as .jpg, then over
+    the same pixels (decoded by the port) written as PNG, one model for
+    both runs: the label maps must be equal."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from prismer_tpu_torch import native
+    from prismer_tpu_torch.data import png
+    from prismer_tpu_torch.experts import generate
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="segjpeg_", dir=ROOT / "build"))
+    real_load = generate.load_expert_model
+    cached = {}
+
+    def load_once(*a, **kw):
+        if "model" not in cached:
+            cached["model"] = real_load(*a, **kw)
+        return cached["model"]
+
+    try:
+        for name in SEG_JPEG_FIXTURES:
+            data = (JPEG_FIXTURES / name).read_bytes()
+            stem = name[:-len(".jpg")]
+            for kind in ("jpg", "png"):
+                (tmp / kind / "images").mkdir(parents=True, exist_ok=True)
+            (tmp / "jpg" / "images" / name).write_bytes(data)
+            png.write_png(str(tmp / "png" / "images" / f"{stem}.png"),
+                          native.decode_jpeg(data))
+        generate.load_expert_model = load_once
+        t0 = time.perf_counter()
+        try:
+            for kind in ("jpg", "png"):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = generate.main([
+                        "--task", "seg_coco", "--data_path",
+                        str(tmp / kind), "--save_path",
+                        str(tmp / f"labels_{kind}"), "--batch_size",
+                        str(len(SEG_JPEG_FIXTURES))])
+                expect(rc == 0, f"generate.main over {kind} returned {rc}")
+        finally:
+            generate.load_expert_model = real_load
+        for name in SEG_JPEG_FIXTURES:
+            stem = name[:-len(".jpg")]
+            maps = [png.read_png(str(tmp / f"labels_{kind}" / "seg_coco"
+                                     / kind / "images" / f"{stem}.png"))
+                    for kind in ("jpg", "png")]
+            h, w = native.decode_jpeg_shape(
+                (JPEG_FIXTURES / name).read_bytes())
+            expect(maps[0].shape == (h, w), f"{name}: label {maps[0].shape}")
+            expect(np.array_equal(maps[0], maps[1]),
+                   f"{name}: labels from the .jpg and the .png differ at "
+                   f"{int((maps[0] != maps[1]).sum())} pixels")
+        log(f"  {len(SEG_JPEG_FIXTURES)} JPEG fixtures and their PNG copies "
+            f"give equal seg_coco label maps ({time.perf_counter() - t0:.1f} "
+            f"s, model build included; {card})")
+    finally:
+        cached.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------------
 
 KERNELS = (
@@ -3693,9 +4164,14 @@ def main(argv=None) -> int:
               ("convert", lambda r: phase_convert(r, card)),
               ("train parity", phase_train_parity),
               ("train", lambda r: phase_train(r, card, args.profile)),
+              ("jpeg", lambda r: phase_jpeg(r, card)),
+              ("data", lambda r: phase_data(r, card)),
+              ("train from files", lambda r: phase_train_from_files(r, card)),
+              ("eval from files", lambda r: phase_eval_from_files(r, card)),
               ("segment parity", phase_segment_parity),
               ("segment", lambda r: phase_segment(r, card, args.profile,
-                                                  tf32_defaults)))
+                                                  tf32_defaults)),
+              ("segment jpeg", lambda r: phase_segment_jpeg(r, card)))
     for name, fn in phases:
         log(f"phase {name}")
         t0 = time.perf_counter()

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from prismer_tpu_torch.config import canonical_expert
@@ -55,3 +56,14 @@ def materialize_experts(raw: Dict[str, Any], dtype=torch.float32
         else:
             out[name] = v if v.dtype == torch.uint8 else v.to(dtype)
     return out
+
+
+def experts_to_device(experts_batch: Dict[str, Any], device) -> Dict[str, Any]:
+    """Host expert batch (numpy leaves, the raw id / table format of
+    data/labels.py) -> tensors on `device`, the torch counterpart of the
+    JAX package's cli/common.py `experts_to_device` without the mesh."""
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return {k: conv(v) for k, v in experts_batch.items()}

@@ -9,8 +9,9 @@ Globs D/*/ for images, runs the Mask2Former expert batch by batch on the
 device in fp32 (TF32 off for the run), and writes one grey id PNG per image at the image's original size
 under S/<task>/<parent>/<folder>/: the per-pixel argmax of the semantic
 logits (ties to the lowest class id), resized with PIL's NEAREST rule.
-Images are read with `data.png`; JPEG decoding on the machine with the card
-is still to be ported (ROADMAP §1 item 5), so a .jpg raises. The files are
+Images are read as RGB by `data.labels.read_rgb` (PNG through `data.png`,
+JPEG through the port's decoder, both equal to PIL's); other formats
+raise. The files are
 sharded by --shard_id / --num_shards as the reference shards its processes.
 It runs on the CUDA device unless --device cpu is given, and refuses to
 start when there is no CUDA device and the CPU was not asked for.
@@ -27,8 +28,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from prismer_tpu_torch.data.labels import read_rgb
 from prismer_tpu_torch.data.pil_warp import resize_nearest_u8
-from prismer_tpu_torch.data.png import read_png, write_png
+from prismer_tpu_torch.data.png import write_png
 from prismer_tpu_torch.experts.model_bank import load_expert_model
 
 TASKS = ["depth", "normal", "edge", "seg_coco", "seg_ade", "obj_detection",
@@ -52,15 +54,6 @@ def save_rel_path(img_path: str) -> Tuple[str, str]:
     return rel_dir, fname
 
 
-def read_image(path: str) -> np.ndarray:
-    """uint8 (H, W[, C]) pixels of a PNG; other formats raise."""
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: only PNG images are read here; JPEG decoding on the "
-            f"machine with the card is ROADMAP §1 item 5")
-    return read_png(path)
-
-
 def run_segmentation(args, task: str) -> None:
     device = torch.device(getattr(args, "device", "cuda"))
     model, preprocess = load_expert_model(
@@ -73,7 +66,7 @@ def run_segmentation(args, task: str) -> None:
         chunk = files[i:i + bs]
         sizes, batch = [], []
         for p in chunk:
-            img = read_image(p)
+            img = read_rgb(p)
             sizes.append((img.shape[1], img.shape[0]))
             batch.append(preprocess(img))
         x = torch.from_numpy(np.stack(batch)).to(device)

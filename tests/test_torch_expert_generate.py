@@ -123,6 +123,38 @@ def test_segmentation_labels_match_jax_generator(image_root, tmp_path,
     assert near_ties < 0.05 * sum(w * h for *_, (w, h) in IMAGES)
 
 
+def test_jpeg_and_png_inputs_give_equal_labels(tmp_path, monkeypatch):
+    """The generator over JPEG files (the port's decoder) and over the
+    pixels PIL decodes from them, written as PNG: the same label maps."""
+    rng = np.random.default_rng(3)
+    for k, (size, sub) in enumerate([((97, 61), 2), ((64, 80), 0),
+                                     ((33, 47), 1)]):
+        img = Image.fromarray(_image(rng, "RGB", size))
+        for kind in ("jpg", "png"):
+            os.makedirs(tmp_path / kind / "data" / "images", exist_ok=True)
+        img.save(tmp_path / "jpg" / "data" / "images" / f"{k}.jpg", quality=85,
+                 subsampling=sub, progressive=k == 1)
+        Image.open(tmp_path / "jpg" / "data" / "images" / f"{k}.jpg").convert(
+            "RGB").save(tmp_path / "png" / "data" / "images" / f"{k}.png")
+    port = pm.MaskFormer(device="cpu", **TINY).eval()
+    load_jax_variables(port, seeded(jax.eval_shape(
+        TinyMaskFormer(TINY).init, jax.random.key(0),
+        jnp.zeros((1, RES, RES, 3))), 13))
+    monkeypatch.setattr(port_generate, "load_expert_model",
+                        lambda task, image_size, device: (
+                            port, port_bank.resize_norm(
+                                image_size, port_bank.SEG_MEAN,
+                                port_bank.SEG_STD)))
+    for kind in ("jpg", "png"):
+        port_generate.run_segmentation(
+            _args(tmp_path / kind, tmp_path / f"out_{kind}"), "seg_coco")
+    for k in range(3):
+        got, want = (png.read_png(str(tmp_path / f"out_{kind}" / "seg_coco"
+                                      / "data" / "images" / f"{k}.png"))
+                     for kind in ("jpg", "png"))
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("mode,shape", [("L", (23, 31)), ("RGB", (17, 9, 3)),
                                         ("RGBA", (8, 40, 4))])
 def test_png_round_trip_and_pil_reads_it(mode, shape):
@@ -227,12 +259,17 @@ def test_nearest_resize_equals_pil(src, dst):
 
 
 def test_jpeg_input_raises(tmp_path, monkeypatch):
+    """JPEG input is read by the port's decoder; a kind it refuses
+    (arithmetic coding: a baseline file whose SOF0 says SOF9) raises before
+    anything is written."""
     os.makedirs(tmp_path / "data" / "a")
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(
-        tmp_path / "data" / "a" / "x.jpg")
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, "JPEG")
+    data = buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1)
+    (tmp_path / "data" / "a" / "x.jpg").write_bytes(data)
     monkeypatch.setattr(port_generate, "load_expert_model",
                         lambda task, image_size, device: (None, None))
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(ValueError, match="arithmetic-coded JPEG"):
         port_generate.run_segmentation(_args(tmp_path, tmp_path / "out"),
                                        "seg_coco")
     assert not (tmp_path / "out" / "seg_coco").exists()

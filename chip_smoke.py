@@ -51,7 +51,17 @@ that loader, captions tokenized as cli/train_caption.py does: ms/step,
 images/s and the device's idle share beside the same steps on one fixed
 batch), "eval from files" (`Caption(train=False)` at batch 8 through
 `build_generate_fn`, `decode_captions` and `coco_caption_eval`: 16
-distinct image ids, finite scores), and after "segment", "segment jpeg"
+distinct image ids, finite scores), then the command-line drivers, each
+`main` called in process from a copy of the repo's task YAML with only
+paths, `datasets` and `max_epoch: 1` set, read by the port's YAML reader:
+"cli caption" (480 px, batch 4, eval and CIDEr, then `--from_checkpoint
+--evaluate`), "cli vqa" (480 px, batch 8 with sample weights, rank over
+3,000 answers), "cli classification" (384 px from a reference-layout
+.bin, rank over 1,000 class names), "cli pretrain" (224 px,
+freeze_lang_vision, batch 32, peak memory) and "cli demo" (16 images at
+batch 1, then `demo_vis`), each with ms/step, images/s, eval s and the
+launches (every training kernel in the train steps, kernels 1-5 in
+caption eval), and after "segment", "segment jpeg"
 (the generator over 4 fixtures as .jpg and the same pixels as PNG: equal
 label maps). Exits non-zero if any phase fails or if there is no CUDA
 device; the last line of standard output is a JSON object with the
@@ -283,8 +293,9 @@ def forward_attention():
     VQA rank path at batch 1 and 32 (pass 1's self-attention over the
     12-token question and its cross-attention over the 964 encoder states;
     pass 2's over [question ; answer] for N = B x k_test rows), VQA
-    generation's prefill (BOS + 12 question tokens, N = 8 x 3 beams), then
-    the train step's at batch 4 (TRAIN_ATTENTION). Key masks: "prefill"
+    generation's prefill (BOS + 12 question tokens, N = 8 x 3 beams), the
+    classification driver's rank eval at 384 px (cli_eval_attention), then
+    the train steps' (train_attention). Key masks: "prefill"
     (right-padded prompts, the first key always kept), "rank" (a
     right-padded question, then the answer's keys all kept) or "captions"
     (right-padded captions, one sample with no valid key). views: the
@@ -306,10 +317,19 @@ def forward_attention():
                  q_len + a_len, 12, 64, "rank", True, True))],
             ("vqa prefill P13", False, VQA_GEN_BATCH * 3, 13, 13, 12, 64,
              "prefill", True, True),
+            *cli_eval_attention(),
             *[(f"train {name}", packed, b, lq, lk, h, dh,
                "captions" if masked else None, causal, False)
               for name, packed, b, lq, lk, h, dh, masked, causal
-              in TRAIN_ATTENTION]]
+              in train_attention()]]
+
+
+def _caption_lens(b: int, lk: int):
+    """Right-padded captions' key counts, one sample with no valid key:
+    lk, lk - 7, 5, 0, repeated over the batch."""
+    import torch
+    lens = (lk, lk - 7, 5, 0)
+    return torch.tensor([lens[i % 4] for i in range(b)], device="cuda")
 
 
 def _forward_mask(kind, b, lk):
@@ -317,7 +337,7 @@ def _forward_mask(kind, b, lk):
     if kind is None:
         return None
     if kind == "captions":
-        lens = torch.tensor([lk, lk - 7, 5, 0][:b], device="cuda")
+        lens = _caption_lens(b, lk)
         return (torch.arange(lk, device="cuda")[None] < lens[:, None]).to(
             torch.int32)
     if kind == "rank":  # questions of 1 .. P tokens, then the answer's
@@ -831,11 +851,69 @@ TRAIN_ATTENTION = (
     ("decoder self", False, 4, 30, 30, 12, 64, True, True),
     ("decoder cross", False, 4, 30, 964, 12, 64, False, False),
 )
+# the drivers' train steps at other resolutions (phases "cli pretrain" and
+# "cli classification"): (label, pixels, batch)
+CLI_TRAIN_SIZES = (("pretrain", 224, 32), ("classification", 384, 2))
+
+
+def _encoder_shapes(res: int):
+    """Prismer-BASE (six experts) at `res` px: (trunk tokens, resampler
+    keys, trunk heads, resampler heads, resampler head dim)."""
+    v = model_config(CLI_MODEL, res, "bfloat16").vision
+    return (v.rgb_tokens + v.resampler_latents,
+            expert_tokens(v) + v.resampler_latents, v.heads,
+            v.resampler_heads, v.width // v.resampler_heads)
+
+
+def train_attention():
+    """TRAIN_ATTENTION, then the same rows of the pretrain driver's step
+    (224 px, batch 32: trunk 260 tokens, decoder self-attention over 30
+    captions' keys at batch 32, cross-attention over 260 keys) and the
+    classification driver's (384 px, batch 2: trunk 640 tokens,
+    cross-attention over 640 keys), derived from the model config."""
+    rows = list(TRAIN_ATTENTION)
+    for label, res, b in CLI_TRAIN_SIZES:
+        trunk, keys, h, rh, rdh = _encoder_shapes(res)
+        rows += [(f"{label} trunk {res} px", True, b, trunk, trunk, h, 64,
+                  False, False),
+                 (f"{label} resampler {res} px", True, b, 64, keys, rh, rdh,
+                  False, False),
+                 (f"{label} decoder cross {res} px", False, b, 30, trunk, 12,
+                  64, False, False)]
+        if b > 4:
+            rows.append((f"{label} decoder self B{b}", False, b, 30, 30, 12,
+                         64, True, True))
+    return rows
+
+
+def cli_eval_attention():
+    """The classification driver's rank eval (phase "cli classification":
+    384 px, 8 images at the config's batch_size_test 8): the encoder's
+    trunk and resampler, and rank pass 1's self- and cross-attention over
+    the config's prefix prompt, the cross-attention over 640 keys."""
+    from prismer_tpu_torch.config import (default_config_path,
+                                          load_task_config)
+    from prismer_tpu_torch.models.caption import prefix_prompt_ids
+    from prismer_tpu_torch.tokenizer import synthetic_tokenizer
+    config = load_task_config(default_config_path("classification"))
+    res, b = config["image_resolution"], config["batch_size_test"]
+    p = prefix_prompt_ids(synthetic_tokenizer(), config["prefix"],
+                          1)[0].shape[1]
+    trunk, keys, h, rh, rdh = _encoder_shapes(res)
+    return [(f"classification encoder {res} px B{b}", True, b, trunk, trunk,
+             h, 64, None, False, False),
+            (f"classification resampler {res} px B{b}", True, b, 64, keys,
+             rh, rdh, None, False, False),
+            (f"classification rank pass 1 self B{b}", False, b, p, p, 12, 64,
+             "prefill", True, True),
+            (f"classification rank pass 1 cross B{b}", False, b, p, trunk,
+             12, 64, None, False, True)]
 
 
 def check_flash_backward(results):
-    """Kernels 6 and 7 against their plain versions at the train step's
-    shapes and at the LARGE / HUGE encoders' head dims 80, 128 and 160,
+    """Kernels 6 and 7 against their plain versions at the train steps'
+    shapes (train_attention) and at the LARGE / HUGE encoders' head dims
+    80, 128 and 160,
     fp32 and bf16; two launches on the same inputs bit-identical. At every
     bf16 shape: kernel and plain ms (CUDA events), device ms (graph
     replay), the bound, achieved TFLOP/s on the 6 / 8 x B*H*Lq*Lk*Dh counts
@@ -849,8 +927,8 @@ def check_flash_backward(results):
                    results["flash_attention_bwd_dkv"])
     wide = [(name, True, b, lq, lk, h, dh, False, False)
             for name, b, lq, lk, h, dh in wide_attention()]
-    for name, packed, b, lq, lk, h, dh, masked, causal in (*TRAIN_ATTENTION,
-                                                           *wide):
+    for name, packed, b, lq, lk, h, dh, masked, causal in (
+            *train_attention(), *wide):
         w = h * dh
         if packed:
             shapes = ((b, lq, w), (b, lk, w), (b, lk, w))
@@ -860,7 +938,7 @@ def check_flash_backward(results):
         dout32 = torch.randn(*shapes[0], generator=gen, device="cuda")
         mask = None
         if masked:   # right-padded captions, one sample with no valid key
-            lens = torch.tensor([lk, lk - 7, 5, 0], device="cuda")
+            lens = _caption_lens(b, lk)
             mask = (torch.arange(lk, device="cuda")[None] < lens[:, None]).to(
                 torch.int32)
         for dtype in (torch.float32, torch.bfloat16):
@@ -3277,11 +3355,15 @@ def coco_image(split: str, image_id: int) -> str:
     return f"{split}/COCO_{split}_{image_id:012d}.jpg"
 
 
-def write_label_files(label_root: Path, image: str, rng, w: int, h: int):
+def write_label_files(label_root: Path, image: str, rng, w: int, h: int,
+                      dataset: str = "vqav2"):
     """Random label maps for the six BASE experts at the image's size, as
-    the generators lay them out: piecewise-constant id maps (16 px cells),
-    smooth dense maps, an instance -> class .json for obj_detection and an
-    .npz word sidecar (under the .pt name) for ocr_detection."""
+    the generators lay them out under <label_root>/<expert>/<dataset>/:
+    piecewise-constant id maps (16 px cells), smooth dense maps, an
+    instance -> class .json for obj_detection and an .npz word sidecar
+    (under the .pt name) for ocr_detection."""
+    import os
+
     import numpy as np
     from prismer_tpu_torch.data import png
 
@@ -3291,18 +3373,18 @@ def write_label_files(label_root: Path, image: str, rng, w: int, h: int):
         return np.ascontiguousarray(
             small.repeat(16, 0).repeat(16, 1)[:h, :w])
 
-    stem = image[:-len(".jpg")]
+    stem = os.path.splitext(image)[0]
     maps = {"depth": cells(256), "normal": cells(256, 3), "edge": cells(256),
             "seg_coco": cells(134), "obj_detection": cells(8),
             "ocr_detection": cells(4)}
     for exp, arr in maps.items():
-        path = label_root / exp / "vqav2" / f"{stem}.png"
+        path = label_root / exp / dataset / f"{stem}.png"
         path.parent.mkdir(parents=True, exist_ok=True)
         png.write_png(str(path), arr)
-    det = label_root / "obj_detection" / "vqav2" / f"{stem}.json"
+    det = label_root / "obj_detection" / dataset / f"{stem}.json"
     det.write_text(json.dumps({str(i): int(rng.integers(0, 80))
                                for i in range(8)}))
-    ocr = label_root / "ocr_detection" / "vqav2" / f"{stem}.pt"
+    ocr = label_root / "ocr_detection" / dataset / f"{stem}.pt"
     with open(ocr, "wb") as f:
         np.savez(f, **{str(i): rng.normal(size=64).astype(np.float32)
                        for i in range(4)},
@@ -3523,9 +3605,7 @@ def phase_eval_from_files(results, card: str):
     `build_generate_fn` (bf16, beam 3) on the model the file-fed steps
     left, `decode_captions` and `coco_caption_eval` against the tree's
     ground truth: 16 results with distinct image ids, finite scores, every
-    serving kernel launched."""
-    import shutil
-
+    serving kernel launched. The tree stays for the "cli" phases."""
     import torch
     from prismer_tpu_torch.data import create_loader, experts_to_device
     from prismer_tpu_torch.evals.coco_eval import coco_caption_eval
@@ -3580,8 +3660,408 @@ def phase_eval_from_files(results, card: str):
                f"eval-from-files launches {counts}")
     finally:
         _FILES.pop("model", None)
-        shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the command-line drivers (python -m prismer_tpu_torch.cli.*), called in
+# process from the repo's own task YAMLs over trees made from the fixtures
+# ---------------------------------------------------------------------------
+
+CLI_DEVICE = "cuda"
+CLI_MODEL = "prismer_base"      # the weight files' model, as the YAMLs name
+CLI_VQA_TRAIN, CLI_VQA_TEST, CLI_VQA_ANSWERS = 32, 16, 3000
+CLI_CLASSES, CLI_CLASS_NAMES = 8, 1000
+CLI_DEMO_IMAGES = 16
+# the pretrain driver's COCO list: the 64 train records of phase "data",
+# each listed this many times, so that its run takes several timed steps
+CLI_PRETRAIN_REPEAT = 4
+# the step counts of the driver runs: caption 64 records / batch 4, vqa 32
+# / 8, classification 8 classes x 1 shot / 2, pretrain 4 x 64 / 32
+_CLI = {}
+
+
+def cli_yaml(task: str, dst: Path, **values) -> str:
+    """The repo's configs/<task>.yaml with the value of each named key
+    (every block of a keyed file) replaced by the given YAML text, written
+    to dst: the drivers read it with the port's YAML reader."""
+    from prismer_tpu_torch.config import default_config_path
+    text = Path(default_config_path(task)).read_text()
+    for key, value in values.items():
+        text, n = re.subn(rf"^(\s*){key}:.*$",
+                          lambda m: f"{m.group(1)}{key}: {value}", text,
+                          flags=re.M)
+        expect(n > 0, f"{task}.yaml has no key {key}")
+    dst.write_text(text)
+    return str(dst)
+
+
+def cli_answers(tok) -> list:
+    """CLI_VQA_ANSWERS distinct two-character answers, each ' <Ans></s>'
+    of 4 tokens under the synthetic tokenizer (no merge applies), as the
+    bench's rank case has them."""
+    first = "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789!#$%&()*+-./:;=?@[]^_{|}~"
+    second = first.lower()[:26] + first[26:]
+    answers = [a + b for a in first for b in second][:CLI_VQA_ANSWERS]
+    from prismer_tpu_torch.models.caption import tokenize_answer_list
+    ids, _ = tokenize_answer_list(tok, answers, lowercase=False)
+    expect(ids.shape == (CLI_VQA_ANSWERS, 4), f"answer ids {ids.shape}")
+    return answers
+
+
+def cli_setup():
+    """Once, under the "data" phase's tree: the synthetic tokenizer's files,
+    the seed's weights as .npz at 480 and 224 px (save_params_npz) and as a
+    reference pytorch_model.bin pretrained at 224 px, and the VQA,
+    ImageNet and demo trees over the same fixtures."""
+    if _CLI:
+        return _CLI
+    import shutil
+
+    import numpy as np
+    import torch
+    from prismer_tpu_torch.config import build_prismer_config
+    from prismer_tpu_torch.models.prismer import Prismer, random_values
+    from prismer_tpu_torch.tokenizer import synthetic_tokenizer
+    from prismer_tpu_torch.train.checkpoint import save_params_npz
+
+    tree = _FILES["tree"]
+    root = tree / "cli"
+    root.mkdir()
+    t0 = time.perf_counter()
+    tok = synthetic_tokenizer()
+    tok_dir = root / "tok"
+    tok_dir.mkdir()
+    (tok_dir / "vocab.json").write_text(json.dumps(tok.vocab))
+    merges = ["#version: 0.2"] + [
+        f"{a} {b}" for (a, b), _ in sorted(tok.bpe_ranks.items(),
+                                           key=lambda kv: kv[1])]
+    (tok_dir / "merges.txt").write_text("\n".join(merges) + "\n")
+
+    weights = {}
+    for res in (480, 224):
+        cfg = build_prismer_config({"experts": list(FILES_EXPERTS),
+                                    "image_resolution": res,
+                                    "prismer_model": CLI_MODEL})
+        model = Prismer(cfg, device="meta")
+        values = random_values(model, SEED)
+        weights[res] = root / f"prismer_base_{res}.npz"
+        save_params_npz(str(weights[res]), {
+            n: values[n] for n, _ in model.named_parameters()})
+        del values
+    bin_path = root / "pytorch_model.bin"
+    torch.save(synthetic_reference_checkpoint(cfg, SEED), bin_path)
+    made = time.perf_counter() - t0
+
+    rng = np.random.default_rng(SEED + 31)
+    words = "a man dog cat sits on the grass near red car with two".split()
+    train = json.loads((tree / "coco_karpathy_train.json").read_text())
+    test = json.loads((tree / "coco_karpathy_test.json").read_text())
+    answers = cli_answers(tok)
+    (tree / "vqav2_train_val.json").write_text(json.dumps([
+        {"dataset": "vqa", "image": r["image"],
+         "question": "what is the " + " ".join(rng.choice(words, 3)) + "?",
+         "answer": answers[int(rng.integers(len(answers)))],
+         "weight": float(rng.choice([0.3, 0.6, 1.0]))}
+        for r in train[:CLI_VQA_TRAIN]]))
+    (tree / "vqav2_test.json").write_text(json.dumps([
+        {"dataset": "vqa", "image": r["image"], "question_id": 5000 + i,
+         "question": "is there a " + " ".join(rng.choice(words, 2)) + "?"}
+        for i, r in enumerate(test[:CLI_VQA_TEST])]))
+    (tree / "answer_list.json").write_text(json.dumps(answers))
+    coco = root / "pretrain_coco"
+    coco.mkdir()
+    (coco / "vqav2").symlink_to(tree / "vqav2")
+    (coco / "coco_karpathy_train.json").write_text(
+        json.dumps(train * CLI_PRETRAIN_REPEAT))
+
+    sources = [JPEG_FIXTURES / n for n in big_fixtures()]
+    inet = root / "imagenet_tree"
+    names = [" ".join(rng.choice(words, int(rng.integers(1, 4)))) + f" {i}"
+             for i in range(CLI_CLASS_NAMES)]
+    folders = [f"n{i:08d}" for i in range(CLI_CLASS_NAMES)]
+    for split in ("imagenet_train", "imagenet"):
+        for c in range(CLI_CLASSES):
+            image = f"{folders[c]}/{folders[c]}_{split}.JPEG"
+            (inet / split / folders[c]).mkdir(parents=True)
+            shutil.copy(sources[c % len(sources)], inet / split / image)
+            write_label_files(inet / "labels", image, rng, 640, 480, split)
+    (inet / "imagenet" / "imagenet_answer.json").write_text(
+        json.dumps(names))
+    (inet / "imagenet" / "imagenet_class.json").write_text(
+        json.dumps({f: i for i, f in enumerate(folders)}))
+
+    demo = root / "helpers"
+    (demo / "images").mkdir(parents=True)
+    for r in test[:CLI_DEMO_IMAGES]:
+        name = Path(r["image"]).name
+        shutil.copy(tree / "vqav2" / r["image"], demo / "images" / name)
+        write_label_files(demo / "labels", f"images/{name}", rng, 640, 480,
+                          "helpers")
+    log(f"  tokenizer files, weights (.npz at 480 / 224 px "
+        f"{weights[480].stat().st_size / 2**30:.2f} / "
+        f"{weights[224].stat().st_size / 2**30:.2f} GiB, .bin "
+        f"{bin_path.stat().st_size / 2**30:.2f} GiB), VQA / ImageNet / "
+        f"demo trees written in {made:.1f} s + "
+        f"{time.perf_counter() - t0 - made:.1f} s")
+    _CLI.update(root=root, tok=str(tok_dir), npz480=str(weights[480]),
+                npz224=str(weights[224]), bin=str(bin_path), inet=inet,
+                demo=demo, answers=answers, coco=coco)
+    return _CLI
+
+
+def cli_argv(cfg_path: str, exp: str, *extra) -> list:
+    c = _CLI
+    return ["--config", cfg_path, "--exp_name", exp, "--tokenizer_dir",
+            c["tok"], "--logging_dir", str(c["root"] / "logging"),
+            "--results_dir", str(c["root"] / "results"),
+            "--device", CLI_DEVICE, *extra]
+
+
+def run_driver(module, argv, timed=None) -> dict:
+    """module.main(argv) in process, its train step and the function
+    `timed` names ((owner, attribute): the eval, or the demo's
+    generate_captions) timed, synchronised; the wrappers' launches counted
+    over the run and apart inside each timed call, from 0."""
+    import gc
+
+    import torch
+    rec = {"steps": [], "losses": [], "evals": [], "eval_counts": []}
+    wrap = wrappers()
+    build = getattr(module, "build_train_step", None)
+    original = getattr(*timed) if timed else None
+
+    def timed_build(model):
+        step = build(model)
+
+        def timed_step(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            rec["steps"].append((t0, time.perf_counter()))
+            rec["losses"].append(float(metrics["loss"]))
+            rec["batch"] = int(batch["input_ids"].shape[0])
+            return state, metrics
+        return timed_step
+
+    def timed_call(*a, **kw):
+        before = {n: w.launches for n, w in wrap.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(*a, **kw)
+        torch.cuda.synchronize()
+        rec["evals"].append(time.perf_counter() - t0)
+        rec["eval_counts"].append({n: w.launches - before[n]
+                                   for n, w in wrap.items()})
+        return out
+
+    if build:
+        module.build_train_step = timed_build
+    if timed:
+        setattr(*timed, timed_call)
+    for fn in wrap.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        module.main(argv)
+    finally:
+        if build:
+            module.build_train_step = build
+        if timed:
+            setattr(*timed, original)
+    rec["wall"] = time.perf_counter() - t0
+    total = {n: w.launches for n, w in wrap.items()}
+    rec["train_counts"] = {n: total[n] - sum(c[n] for c in rec["eval_counts"])
+                           for n in total}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def report_driver(label: str, rec: dict, card: str, train: bool = True):
+    """Log ms/step, images/s, eval s and the launches of one driver run;
+    fail on a non-finite loss or a training kernel that did not launch."""
+    parts = [f"  {label}: run {rec['wall']:.1f} s"]
+    if train:
+        steps = rec["steps"]
+        ms = [(b - a) * 1e3 for a, b in steps[1:]]
+        span = steps[-1][1] - steps[0][1]
+        parts.append(
+            f"{len(steps)} steps at batch {rec['batch']}, losses "
+            + " ".join(f"{x:.4f}" for x in rec["losses"])
+            + f"; steps 2-{len(steps)}: median {statistics.median(ms):.1f} "
+            f"ms/step (min {min(ms):.1f}, max {max(ms):.1f}), "
+            f"{rec['batch'] * (len(steps) - 1) / span:.1f} images/s with the "
+            f"loader; train launches " + ", ".join(
+                f"{k}={rec['train_counts'][k]}" for k in TRAIN_KERNELS))
+        expect(all(map(math.isfinite, rec["losses"])), "loss not finite")
+        expect(all(rec["train_counts"][k] > 0 for k in TRAIN_KERNELS),
+               f"{label} train launches {rec['train_counts']}")
+    if len(rec["evals"]) > 2:
+        ms = [t * 1e3 for t in rec["evals"]]
+        parts.append(f"{len(ms)} timed calls: median "
+                     f"{statistics.median(ms):.1f} ms (min {min(ms):.1f}, "
+                     f"max {max(ms):.1f})")
+    else:
+        for t, counts in zip(rec["evals"], rec["eval_counts"]):
+            parts.append(f"eval {t:.2f} s, launches " + ", ".join(
+                f"{k}={v}" for k, v in counts.items() if v))
+    log("; ".join(parts) + f" ({card})")
+
+
+def phase_cli_caption(results, card: str):
+    """`train_caption.main` from configs/caption.yaml (coco; data and label
+    paths set, max_epoch 1): 16 bf16 steps at batch 4, 480 px, over the
+    64 train records from the seed's .npz, eval at batch 8 and CIDEr; then
+    `--from_checkpoint --evaluate` on the same directory."""
+    import shutil
+
+    from prismer_tpu_torch.cli import train_caption
+    c = cli_setup()
+    tree = _FILES["tree"]
+    cfg = cli_yaml("caption", c["root"] / "caption.yaml",
+                   data_path=f"'{tree}'", label_path=f"'{tree / 'labels'}'",
+                   max_epoch=1)
+    argv = cli_argv(cfg, "cli", "--pretrained", c["npz480"])
+    rec = run_driver(train_caption, argv, (train_caption, "evaluate"))
+    report_driver("cli caption", rec, card)
+    expect(len(rec["steps"]) == FILES_TRAIN // 4, f"{len(rec['steps'])} steps")
+    for counts in rec["eval_counts"]:
+        expect(all(counts[k] > 0 for k in SERVE_KERNELS),
+               f"caption eval launches {counts}")
+    out = c["root"] / "results" / "caption_results_cli_coco.json"
+    res = json.loads(out.read_text())
+    expect(len(res) == FILES_TEST and len({r["image_id"] for r in res})
+           == FILES_TEST, f"{len(res)} caption results")
+    ckpt = c["root"] / "logging" / "caption_cli" / "state"
+    expect(ckpt.exists(), "no caption checkpoint")
+    rec = run_driver(train_caption, argv + ["--from_checkpoint",
+                                            "--evaluate"],
+                     (train_caption, "evaluate"))
+    report_driver("cli caption --from_checkpoint --evaluate", rec, card,
+                  train=False)
+    expect(not rec["steps"] and len(rec["evals"]) == 1,
+           "--evaluate trained")
+    shutil.rmtree(c["root"] / "logging", ignore_errors=True)
+
+
+def phase_cli_vqa(results, card: str):
+    """`train_vqa.main` from configs/vqa.yaml (datasets ['vqav2'], paths
+    set, max_epoch 1): 4 bf16 steps at batch 8, 480 px, with per-sample
+    weights, then rank eval (k_test 16) of 16 questions at the config's
+    batch 32 over 3,000 answers of 4 tokens."""
+    import shutil
+
+    from prismer_tpu_torch.cli import train_vqa
+    c = cli_setup()
+    tree = _FILES["tree"]
+    cfg = cli_yaml("vqa", c["root"] / "vqa.yaml", datasets="['vqav2']",
+                   data_path=f"'{tree}'", label_path=f"'{tree / 'labels'}'",
+                   max_epoch=1)
+    rec = run_driver(train_vqa, cli_argv(cfg, "cli", "--pretrained",
+                                         c["npz480"]),
+                     (train_vqa, "evaluate"))
+    report_driver("cli vqa", rec, card)
+    expect(len(rec["steps"]) == CLI_VQA_TRAIN // 8, "vqa steps")
+    expect(all(rec["eval_counts"][0][k] > 0 for k in RANK_PATH),
+           f"vqa rank launches {rec['eval_counts']}")
+    res = json.loads((c["root"] / "results" / "vqa_results_cli.json")
+                     .read_text())
+    expect(len(res) == CLI_VQA_TEST and all(
+        r["answer"] in c["answers"] for r in res), "vqa results")
+    shutil.rmtree(c["root"] / "logging", ignore_errors=True)
+
+
+def phase_cli_classification(results, card: str):
+    """`train_classification.main` from configs/classification.yaml (paths
+    set, max_epoch 1) at 384 px from the reference-layout .bin (pretrained
+    at 224 px, converted on the fly): 4 bf16 steps at batch 2 over 8
+    classes x 1 shot, then rank eval of 8 images over 1,000 class names
+    with k_test 32."""
+    import shutil
+
+    from prismer_tpu_torch.cli import train_classification
+    c = cli_setup()
+    inet = c["inet"]
+    cfg = cli_yaml("classification", c["root"] / "classification.yaml",
+                   data_path=f"'{inet}'", label_path=f"'{inet / 'labels'}'",
+                   max_epoch=1)
+    rec = run_driver(train_classification,
+                     cli_argv(cfg, "cli", "--pretrained", c["bin"]),
+                     (train_classification, "eval_accuracy"))
+    report_driver("cli classification", rec, card)
+    expect(len(rec["steps"]) == CLI_CLASSES // 2, "classification steps")
+    expect(all(rec["eval_counts"][0][k] > 0 for k in RANK_PATH),
+           f"classification rank launches {rec['eval_counts']}")
+    shutil.rmtree(c["root"] / "logging", ignore_errors=True)
+
+
+def phase_cli_pretrain(results, card: str):
+    """`train_pretrain.main` from configs/pretrain.yaml (datasets
+    ['coco'], paths set, max_epoch 1): freeze_lang_vision at 224 px, 8
+    bf16 steps at batch 32 over the 64 COCO records listed 4 times; the
+    peak memory the run allocated above what was allocated before it."""
+    import gc
+    import shutil
+
+    import torch
+    from prismer_tpu_torch.cli import train_pretrain
+    c = cli_setup()
+    tree = _FILES["tree"]
+    cfg = cli_yaml("pretrain", c["root"] / "pretrain.yaml",
+                   datasets="['coco']", coco_data_path=f"'{c['coco']}'",
+                   label_path=f"'{tree / 'labels'}'", max_epoch=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec = run_driver(train_pretrain, cli_argv(cfg, "cli", "--pretrained",
+                                              c["npz224"]))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    report_driver("cli pretrain", rec, card)
+    log(f"  cli pretrain: peak memory allocated by the run {peak:.2f} GiB "
+        f"above the {base / 2**30:.2f} GiB allocated before it (batch "
+        f"{rec['batch']}, 224 px, freeze_lang_vision; {card})")
+    expect(len(rec["steps"]) == FILES_TRAIN * CLI_PRETRAIN_REPEAT // 32,
+           "pretrain steps")
+    shutil.rmtree(c["root"] / "logging", ignore_errors=True)
+
+
+def phase_cli_demo(results, card: str):
+    """`demo.main` from configs/caption.yaml (demo; paths set) over the 16
+    test images at batch 1, a caption file beside each, then
+    `demo_vis.main` on one of them: a 7-panel PNG."""
+    from prismer_tpu_torch.cli import demo, demo_vis
+    from prismer_tpu_torch.data.png import read_png
+    c = cli_setup()
+    cfg = cli_yaml("caption", c["root"] / "demo.yaml",
+                   data_path=f"'{c['demo']}'",
+                   label_path=f"'{c['demo'] / 'labels'}'")
+    rec = run_driver(demo, cli_argv(cfg, "demo", "--pretrained",
+                                    c["npz480"]),
+                     (demo.caption_head, "generate_captions"))
+    report_driver("cli demo", rec, card, train=False)
+    counts = {k: sum(n[k] for n in rec["eval_counts"])
+              for k in SERVE_KERNELS}
+    expect(len(rec["evals"]) == CLI_DEMO_IMAGES, "demo generate calls")
+    log(f"  cli demo: {CLI_DEMO_IMAGES} images at batch 1, launches "
+        + ", ".join(f"{k}={counts[k]}" for k in SERVE_KERNELS))
+    expect(all(counts[k] > 0 for k in SERVE_KERNELS),
+           f"demo launches {counts}")
+    images = sorted((c["demo"] / "images").glob("*.jpg"))
+    caps = [p.with_suffix(".txt") for p in images]
+    expect(len(images) == CLI_DEMO_IMAGES and all(p.exists() for p in caps),
+           "demo captions")
+    out = c["root"] / "vis.png"
+    t0 = time.perf_counter()
+    demo_vis.main(["--image", str(images[0]), "--label_path",
+                   str(c["demo"] / "labels"), "--out", str(out)])
+    fig = read_png(str(out))
+    log(f"  demo_vis: {fig.shape} figure in "
+        f"{time.perf_counter() - t0:.2f} s")
+    expect(fig.shape == (256 + 2 * 4 + 20, 7 * (256 + 4) + 4, 3),
+           f"figure {fig.shape}")
 
 
 # ---------------------------------------------------------------------------
@@ -4168,6 +4648,12 @@ def main(argv=None) -> int:
               ("data", lambda r: phase_data(r, card)),
               ("train from files", lambda r: phase_train_from_files(r, card)),
               ("eval from files", lambda r: phase_eval_from_files(r, card)),
+              ("cli caption", lambda r: phase_cli_caption(r, card)),
+              ("cli vqa", lambda r: phase_cli_vqa(r, card)),
+              ("cli classification",
+               lambda r: phase_cli_classification(r, card)),
+              ("cli pretrain", lambda r: phase_cli_pretrain(r, card)),
+              ("cli demo", lambda r: phase_cli_demo(r, card)),
               ("segment parity", phase_segment_parity),
               ("segment", lambda r: phase_segment(r, card, args.profile,
                                                   tf32_defaults)),

@@ -2,19 +2,22 @@
 
 Same dataclasses, field for field, so a configuration built here equals the
 JAX package's. The model registry is read from prismer_tpu/configs/
-prismer.json by file path with `json`. Task configurations come in as dicts
-(the keys of the reference's YAML task configs); this module reads no YAML.
+prismer.json by file path with `json`, and the task configurations from
+prismer_tpu/configs/*.yaml by file path with `load_task_config`, whose
+reader (`parse_yaml`) takes the subset of YAML those files use and
+resolves it as PyYAML's `safe_load` does. Nothing here imports `yaml`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
-REGISTRY_PATH = (Path(__file__).resolve().parents[1] / "prismer_tpu"
-                 / "configs" / "prismer.json")
+CONFIG_DIR = Path(__file__).resolve().parents[1] / "prismer_tpu" / "configs"
+REGISTRY_PATH = CONFIG_DIR / "prismer.json"
 
 # CLIP vision tower geometry per published model name
 VIT_GEOMETRY: Dict[str, Dict[str, int]] = {
@@ -188,3 +191,260 @@ def tiny_test_config(experts: Optional[List[str]] = None,
 # the captioning slice's configuration (configs/caption.yaml 'coco' entry)
 CAPTION_EXPERTS = ["depth", "normal", "seg_coco", "edge", "obj_detection",
                    "ocr_detection"]
+
+
+# ---------------------------------------------------------------------------
+# task configurations: the YAML subset of prismer_tpu/configs/*.yaml
+# ---------------------------------------------------------------------------
+
+def default_config_path(task: str) -> str:
+    """prismer_tpu/configs/<task>.yaml."""
+    return str(CONFIG_DIR / f"{task}.yaml")
+
+
+def load_task_config(path: str, target: Optional[str] = None
+                     ) -> Dict[str, Any]:
+    """A task YAML as a dict; `target` selects the dataset key of a keyed
+    file (caption.yaml: coco / nocaps / demo)."""
+    with open(path, encoding="utf-8") as f:
+        cfg = parse_yaml(f.read(), str(path))
+    if target is not None:
+        cfg = cfg[target]
+    return cfg
+
+
+# The plain scalars the configs use, resolved as PyYAML's YAML 1.1
+# implicit resolvers (yaml/resolver.py) resolve them: null, bool, decimal
+# and 0x ints (with '_' separators) and floats with a dot. A float needs
+# its dot and a signed exponent, so `1e-4` stays a string there.
+_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False"
+                   r"|FALSE|on|On|ON|off|Off|OFF)$")
+_TRUE = ("yes", "true", "on")
+_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
+_HEX = re.compile(r"^[-+]?0x[0-9a-fA-F_]+$")
+_FLOAT = re.compile(r"^(?:[-+]?[0-9][0-9_]*\.[0-9_]*|\.[0-9][0-9_]*)"
+                    r"(?:[eE][-+][0-9]+)?$")
+# the other plain scalars PyYAML resolves to something else than a string
+# (binary, octal and base-60 ints, base-60 floats, .inf / .nan, dates and
+# timestamps, the merge and value keys): refused, not reproduced; so is a
+# string that begins like a date
+_UNSUPPORTED = re.compile(r"""^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+
+                          |[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?
+                          |[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)
+                          |[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}.*|<<|=)$""", re.X)
+_ESCAPES = {'"': '"', "\\": "\\", "/": "/", "n": "\n", "t": "\t"}
+# characters that may not start a plain scalar (anchors, aliases, tags,
+# block scalars, flow mappings, directives and reserved indicators among
+# them); '-', '?' and ':' only when a space or the end follows
+_NOT_PLAIN = set("[]{},#&*!|>'\"%@`")
+
+
+class _YamlError(ValueError):
+    pass
+
+
+def resolve_plain(text: str) -> Any:
+    """A plain (unquoted) scalar as PyYAML's safe_load resolves it, for the
+    forms the configs use; ValueError on any other that PyYAML would not
+    read as a string."""
+    if _NULL.match(text):
+        return None
+    if _BOOL.match(text):
+        return text.lower() in _TRUE
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _HEX.match(text):
+        sign = -1 if text[0] == "-" else 1
+        return sign * int(text.lstrip("+-").replace("_", "")[2:], 16)
+    if _FLOAT.match(text):
+        return float(text.replace("_", ""))
+    if _UNSUPPORTED.match(text):
+        raise _YamlError(f"the scalar {text!r} (a binary, octal or base-60 "
+                         "number, .inf, .nan, a timestamp, a merge or value "
+                         "key) is not supported")
+    return text
+
+
+class _Line:
+    """One line of the document, scanned left to right."""
+
+    def __init__(self, text: str, number: int):
+        self.text = text
+        self.number = number
+        self.pos = 0
+
+    def peek(self, k: int = 0) -> str:
+        i = self.pos + k
+        return self.text[i] if i < len(self.text) else ""
+
+    def skip_spaces(self) -> None:
+        while self.peek() == " ":
+            self.pos += 1
+
+    def at_end(self) -> bool:
+        """Only spaces or a comment left."""
+        self.skip_spaces()
+        return self.peek() in ("", "#")
+
+    def quoted(self) -> str:
+        quote = self.peek()
+        self.pos += 1
+        out = []
+        while True:
+            ch = self.peek()
+            if ch == "":
+                raise _YamlError("a quoted scalar must close on its line")
+            self.pos += 1
+            if quote == "'" and ch == "'":
+                if self.peek() == "'":
+                    out.append("'")
+                    self.pos += 1
+                    continue
+                return "".join(out)
+            if quote == '"' and ch == '"':
+                return "".join(out)
+            if quote == '"' and ch == "\\":
+                code = self.peek()
+                self.pos += 1
+                if code not in _ESCAPES:
+                    raise _YamlError(f"unsupported escape \\{code}")
+                out.append(_ESCAPES[code])
+                continue
+            out.append(ch)
+
+    def plain(self, flow: bool) -> str:
+        """A plain scalar up to ' #', the end of the line, or (in a flow
+        list) ',' / ']'; a ': ' inside it would open a mapping."""
+        ch, nxt = self.peek(), self.peek(1)
+        if ch in _NOT_PLAIN or (ch in "-?:" and nxt in ("", " ")):
+            raise _YamlError(f"unsupported construct starting with {ch!r} "
+                             "(anchors, aliases, tags, block scalars, flow "
+                             "mappings and block sequences are refused)")
+        start = self.pos
+        while True:
+            ch = self.peek()
+            if ch == "":
+                break
+            if ch == "#" and self.text[self.pos - 1] == " ":
+                break
+            if ch == ":" and self.peek(1) in ("", " ", ",", "]"):
+                raise _YamlError("a mapping inside a value is not supported")
+            if flow and ch in ",]":
+                break
+            if flow and ch in "[{}":
+                raise _YamlError(f"{ch!r} inside a flow scalar")
+            self.pos += 1
+        return self.text[start:self.pos].rstrip(" ")
+
+    def flow_list(self) -> List[Any]:
+        self.pos += 1       # '['
+        items: List[Any] = []
+        while True:
+            self.skip_spaces()
+            ch = self.peek()
+            if ch == "]":
+                self.pos += 1
+                return items
+            if ch == "" or ch == "#":
+                raise _YamlError("a flow list must close on its line")
+            items.append(self.value(flow=True))
+            self.skip_spaces()
+            ch = self.peek()
+            if ch == ",":
+                self.pos += 1
+            elif ch != "]":
+                raise _YamlError(f"expected ',' or ']' in a flow list, got "
+                                 f"{ch!r}")
+
+    def value(self, flow: bool = False) -> Any:
+        ch = self.peek()
+        if ch in ("'", '"'):
+            return self.quoted()
+        if ch == "[":
+            return self.flow_list()
+        return resolve_plain(self.plain(flow))
+
+    def key(self) -> Any:
+        if self.peek() in ("'", '"'):
+            key = self.quoted()
+            self.skip_spaces()
+        else:
+            ch, nxt = self.peek(), self.peek(1)
+            if ch in _NOT_PLAIN or (ch in "-?:" and nxt in ("", " ")):
+                raise _YamlError(f"unsupported construct starting with "
+                                 f"{ch!r} (block sequences, complex keys, "
+                                 "anchors, tags and flow collections are "
+                                 "refused)")
+            start = self.pos
+            while not (self.peek() == ":" and self.peek(1) in ("", " ")):
+                if self.peek() == "" or (self.peek() == "#"
+                                         and self.text[self.pos - 1] == " "):
+                    raise _YamlError("expected 'key: value'")
+                self.pos += 1
+            key = resolve_plain(self.text[start:self.pos].rstrip(" "))
+        if self.peek() != ":" or self.peek(1) not in ("", " "):
+            raise _YamlError("expected ':' after the key")
+        self.pos += 1
+        return key
+
+
+def parse_yaml(text: str, source: str = "<string>") -> Any:
+    """The YAML subset the task configs use, as `yaml.safe_load` gives it:
+    block mappings nested by indentation, flow lists `[...]`, '#' comments,
+    single- and double-quoted strings and plain scalars resolved by YAML
+    1.1's rules (PyYAML's). Anything else raises ValueError with the file
+    and line: anchors and aliases, tags, block scalars, flow mappings,
+    block sequences, multi-line scalars, several documents, tabs as
+    indentation."""
+    entries = []        # (indent, key, value or _NESTED, line number)
+    for number, raw in enumerate(text.splitlines(), 1):
+        line = _Line(raw, number)
+        try:
+            body = raw.lstrip(" ")
+            if body.startswith("\t") or (body == "" and "\t" in raw):
+                raise _YamlError("tabs may not indent")
+            if raw.startswith(("---", "...", "%")):
+                raise _YamlError("document markers and directives are not "
+                                 "supported (one document per file)")
+            if line.at_end():
+                continue
+            indent = line.pos
+            key = line.key()
+            if line.at_end():
+                value = _NESTED
+            else:
+                value = line.value()
+                if not line.at_end():
+                    raise _YamlError("unexpected text after the value")
+        except _YamlError as e:
+            raise ValueError(f"{source}:{number}: {e}: {raw!r}") from None
+        entries.append((indent, key, value, number))
+    if not entries:
+        return None
+    out, i = _block(entries, 0, entries[0][0], source)
+    if i < len(entries):
+        raise ValueError(f"{source}:{entries[i][3]}: bad indentation")
+    return out
+
+
+_NESTED = object()
+
+
+def _block(entries, i: int, indent: int, source: str):
+    out: Dict[Any, Any] = {}
+    while i < len(entries) and entries[i][0] == indent:
+        _, key, value, number = entries[i]
+        i += 1
+        if value is _NESTED:
+            if i < len(entries) and entries[i][0] > indent:
+                value, i = _block(entries, i, entries[i][0], source)
+            else:
+                value = None
+        elif i < len(entries) and entries[i][0] > indent:
+            raise ValueError(f"{source}:{entries[i][3]}: a value continued "
+                             "on the next line is not supported")
+        out[key] = value
+        if i < len(entries) and indent < entries[i][0]:
+            raise ValueError(f"{source}:{entries[i][3]}: bad indentation")
+    return out, i

@@ -33,10 +33,10 @@ BLOCKED = ("jax", "flax", "optax", "orbax", "yaml", "regex", "PIL")
 
 
 def test_package_imports_without_jax_flax_yaml_regex_pil():
-    """Every module (train/, ops/fused_ce, ops/layer_norm, ops/ln_proj and
-    the segmentation expert's experts/, convert/experts, data/png and
-    data/pil_warp among them) imports with jax, flax, optax, orbax, yaml,
-    regex and PIL unimportable."""
+    """Every module (train/, ops/fused_ce, ops/layer_norm, ops/ln_proj, the
+    segmentation expert's experts/, convert/experts, data/png,
+    data/pil_warp, the cli/ drivers and train/profiling among them) imports
+    with jax, flax, optax, orbax, yaml, regex and PIL unimportable."""
     code = "\n".join([
         "import sys, importlib, pkgutil",
         f"for m in {BLOCKED!r}:",
@@ -48,7 +48,7 @@ def test_package_imports_without_jax_flax_yaml_regex_pil():
         "    importlib.import_module(name)",
         "bad = [m for m in sys.modules if m.split('.')[0] == 'prismer_tpu']",
         "assert not bad, bad",
-        "assert len(names) >= 33, names",
+        "assert len(names) >= 72, names",
         "assert {'prismer_tpu_torch.ops.fused_decode',",
         "        'prismer_tpu_torch.ops.lm_topk',",
         "        'prismer_tpu_torch.ops.fused_ce',",
@@ -70,7 +70,16 @@ def test_package_imports_without_jax_flax_yaml_regex_pil():
         "        'prismer_tpu_torch.data.png',",
         "        'prismer_tpu_torch.data.pil_warp',",
         "        'prismer_tpu_torch.ops.layer_norm',",
-        "        'prismer_tpu_torch.ops.ln_proj'} <= set(names), names",
+        "        'prismer_tpu_torch.ops.ln_proj',",
+        "        'prismer_tpu_torch.cli',",
+        "        'prismer_tpu_torch.cli.common',",
+        "        'prismer_tpu_torch.cli.train_caption',",
+        "        'prismer_tpu_torch.cli.train_vqa',",
+        "        'prismer_tpu_torch.cli.train_classification',",
+        "        'prismer_tpu_torch.cli.train_pretrain',",
+        "        'prismer_tpu_torch.cli.demo',",
+        "        'prismer_tpu_torch.cli.demo_vis',",
+        "        'prismer_tpu_torch.train.profiling'} <= set(names), names",
         "print(len(names))",
     ])
     env = dict(os.environ, PYTHONPATH=str(ROOT))

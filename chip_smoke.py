@@ -63,7 +63,15 @@ batch 1, then `demo_vis`), each with ms/step, images/s, eval s and the
 launches (every training kernel in the train steps, kernels 1-5 in
 caption eval), and after "segment", "segment jpeg"
 (the generator over 4 fixtures as .jpg and the same pixels as PNG: equal
-label maps). Exits non-zero if any phase fails or if there is no CUDA
+label maps), then the other five label experts: "experts parity" (each
+of DPT-hybrid, NNET, DexiNed, UniDet and CharNet at full width from the
+seed, fp32 at 480 px, card against CPU, UniDet stage by stage, and the
+CLIP text encoder at ViT-L/14's text width), "experts generate" (the
+generator's depth, normal, edge, obj_detection, ocr_detection and
+seg_coco tasks over 16 images, every label file where `data.labels` reads
+it, images/s, device and host time, peak memory) and "experts demo"
+(`cli.demo` at BASE captioning those images from those labels, kernels
+1-5 launched). Exits non-zero if any phase fails or if there is no CUDA
 device; the last line of standard output is a JSON object with the
 device.
 
@@ -4382,11 +4390,9 @@ def phase_segment(results, card: str, profile: bool, tf32_defaults):
                f"the generator's forward ran with TF32 flags {set(seen)}")
         expect(after == tf32_defaults, "main() left the TF32 flags changed")
         results["ms_deform_attn"]["launches"] = ms_deform_attn.launches
-        lines = out_buf.getvalue().splitlines()
-        for line in lines:
+        for line in out_buf.getvalue().splitlines():
             log(f"  {line}")
-        # the generator's last progress line: "[task] n/n (seconds s)"
-        loop_s = float(lines[-1].rsplit("(", 1)[1].split(" ")[0])
+        loop_s = generate.LAST_RUN["wall_s"]
         expect(rc == 0, f"generate.main returned {rc}")
         expect(ms_deform_attn.launches == 18, f"ms_deform_attn launched "
                f"{ms_deform_attn.launches} times, want 6 layers x 3 batches")
@@ -4498,6 +4504,405 @@ def phase_segment_jpeg(results, card: str):
     finally:
         cached.clear()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phases "experts parity", "experts generate", "experts demo": the other
+# five label experts, the OCR words' CLIP text encoder, and the demo from
+# the labels the port generated
+# ---------------------------------------------------------------------------
+
+EXPERT_TASKS = ("depth", "normal", "edge", "obj_detection", "ocr_detection")
+EXPERT_RES = 480
+# fp32 card vs CPU, relative L2 of every output compared
+TOL_EXPERT_REL_L2 = 1e-3
+CLIP_WORDS = ("stop", "the cat", "exit", "dog and the cat", "open", "on",
+              "car park", "the end")
+EXPERT_IMAGES = 16      # synthetic PNGs and the 640 x 480 JPEG fixtures
+EXPERT_BATCH = 16
+# object detection runs on shard 0 of 8 of the 16 images (2): with random
+# weights UniDet keeps up to 300 boxes, and the host's class-wise NMS and
+# occlusion ordering take about a minute an image
+OBJDET_SHARDS = 8
+# OCR: the seeded CharNet's heads are set from its own outputs
+# (`sparse_ocr`) so that about this share of the cells pass the word
+# threshold, and half of those the char threshold, with boxes that overlap
+# their neighbours and one dominant char class: with random weights half
+# of the 14,400 cells would be word candidates, and the reference's
+# pairwise polygon NMS (kept as a copy) would take longer than this run
+# may
+OCR_WORD_SHARE = 0.01
+OCR_CHAR_CLASS = 10     # 'A'
+_EXP = {}
+
+
+def expert_inputs(task: str, seed: int):
+    """(1, 480, 480, 3) fp32 image preprocessed as `task`'s generator does."""
+    import numpy as np
+    import torch
+    from prismer_tpu_torch.experts.model_bank import PIXEL_STATS, resize_norm
+    rng = np.random.default_rng(seed)
+    pre = resize_norm(EXPERT_RES, *PIXEL_STATS[task])
+    return torch.from_numpy(pre(seg_image(rng, (640, 480)))[None])
+
+
+def _parity(label: str, got, want) -> float:
+    import torch
+    rel = rel_l2(got.float(), want.float())
+    expect(bool(torch.isfinite(got).all()), f"{label}: not finite")
+    expect(rel <= TOL_EXPERT_REL_L2, f"{label}: card vs CPU rel L2 {rel:.3g}")
+    return rel
+
+
+def phase_experts_parity(results):
+    """Each of the five experts at full width from the seed, fp32, TF32 off,
+    at 480 px batch 1, card against CPU: DPT-hybrid (ViT-B, 12 layers),
+    NNET (EfficientNet-B5), DexiNed, CharNet (Hourglass-88) on their
+    outputs; UniDet (ResNeSt-200) on P3-P7, the RPN's per-level top-k
+    scores and every cascade stage's scores and boxes, each stage fed the
+    CPU's boxes; and the CLIP text encoder at ViT-L/14's text width (768,
+    12 layers, vocabulary 49,408, context 77) on 8 words."""
+    import copy
+
+    import torch
+    from prismer_tpu_torch.experts import model_bank
+    from prismer_tpu_torch.experts.clip_text import (RAW_INIT,
+                                                     CLIPTextEncoder)
+    from prismer_tpu_torch.experts.layers import build_random
+    from prismer_tpu_torch.experts.obj_detection.rcnn import \
+        proposals_after_nms
+    from prismer_tpu_torch.tokenizer import synthetic_clip_tokenizer
+
+    for i, task in enumerate(EXPERT_TASKS):
+        t0 = time.perf_counter()
+        cpu = model_bank._build(task, "cpu")
+        gpu = copy.deepcopy(cpu).to("cuda")
+        built = time.perf_counter() - t0
+        x = expert_inputs(task, SEED + 40 + i)
+        rels = []
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if task != "obj_detection":
+                want = cpu(x)
+                t1 = time.perf_counter()
+                got = gpu(x.cuda())
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if isinstance(want, dict):
+                    rels = [_parity(f"{task} {k}", got[k], want[k])
+                            for k in want]
+                elif isinstance(want, list):
+                    rels = [_parity(f"{task} {j}", g, w)
+                            for j, (g, w) in enumerate(zip(got, want))]
+                else:
+                    rels = [_parity(task, got, want)]
+            else:
+                fc, fg = cpu.features(x), gpu.features(x.cuda())
+                rels += [_parity(f"P{j + 3}", g, w)
+                         for j, (g, w) in enumerate(zip(fg, fc))]
+                for j, ((sc, _, _), (sg, _, _)) in enumerate(zip(
+                        cpu.level_topk(fc), gpu.level_topk(fg))):
+                    rels.append(_parity(f"RPN top-k P{j + 3}", sg, sc))
+                pb, ps = cpu.rpn_proposals(fc)
+                boxes = torch.from_numpy(proposals_after_nms(
+                    pb.numpy(), ps.numpy(), (EXPERT_RES, EXPERT_RES)))
+                for stage in range(3):
+                    s_c, b_c = cpu.cascade_stage(fc, boxes, stage)
+                    s_g, b_g = gpu.cascade_stage(fg, boxes.cuda(), stage)
+                    rels.append(_parity(f"stage {stage} scores", s_g, s_c))
+                    rels.append(_parity(f"stage {stage} boxes", b_g, b_c))
+                    boxes = b_c
+                t1 = t2 = time.perf_counter()
+        log(f"  {task}: {sum(p.numel() for p in cpu.parameters()) / 1e6:.1f}"
+            f" M params, built in {built:.1f} s; CPU vs card in "
+            f"{time.perf_counter() - t0:.1f} s; rel L2 max {max(rels):.3g} "
+            f"over {len(rels)} outputs (tol {TOL_EXPERT_REL_L2})")
+        del cpu, gpu
+    t0 = time.perf_counter()
+    cpu = build_random(CLIPTextEncoder, SEED, "cpu", RAW_INIT)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    ids = torch.from_numpy(synthetic_clip_tokenizer()(list(CLIP_WORDS))).long()
+    with torch.no_grad():
+        rel = _parity("CLIP text", gpu(ids.cuda()), cpu(ids))
+    log(f"  CLIP text encoder (768 wide, 12 layers, vocabulary 49,408): "
+        f"{len(CLIP_WORDS)} words, rel L2 {rel:.3g} (tol "
+        f"{TOL_EXPERT_REL_L2}), {time.perf_counter() - t0:.1f} s")
+    _EXP["clip"] = cpu
+    torch.cuda.empty_cache()
+
+
+def write_clip_assets(weights):
+    """The seed's CLIP text encoder as the converter writes it
+    (`clip_text_vit_l14.npz`) and a BPE vocabulary file of the synthetic
+    tokenizer's merges under its header line."""
+    from prismer_tpu_torch.experts.clip_text import (CLIP_TEXT_WEIGHTS,
+                                                     RAW_INIT,
+                                                     CLIPTextEncoder)
+    from prismer_tpu_torch.experts.layers import build_random
+    from prismer_tpu_torch.tokenizer import CLIP_SYNTHETIC_MERGES
+    from prismer_tpu_torch.train.checkpoint import save_params_npz
+    model = _EXP.pop("clip", None) or build_random(CLIPTextEncoder, SEED,
+                                                   "cpu", RAW_INIT)
+    save_params_npz(str(weights / CLIP_TEXT_WEIGHTS), model.state_dict())
+    (weights / "bpe_simple_vocab_16e6.txt").write_text(
+        "#version: synthetic\n" + "".join(
+            f"{a} {b}\n" for a, b in CLIP_SYNTHETIC_MERGES))
+
+
+def _affine_head(conv, raw, mean: float, std: float) -> None:
+    """Scale and shift a 1x1 conv in place, each output channel apart, so
+    that its outputs on `raw` ((cells, channels), its current outputs)
+    have this mean and standard deviation."""
+    scale = std / raw.std(dim=0)
+    conv.weight.mul_(scale[:, None, None, None])
+    conv.bias.mul_(scale).add_(mean - scale * raw.mean(dim=0))
+
+
+def sparse_ocr(model, images):
+    """Set the seeded CharNet's heads from its own outputs on `images`
+    (module note at OCR_WORD_SHARE): the word / char foreground biases so
+    that about OCR_WORD_SHARE of the cells pass the word threshold and half
+    of those the char threshold; the box sides to about 15 cells (tblr
+    1.5 +- 0.05 before the x10) and the orientation to 0 +- 0.05 rad, so
+    that neighbouring boxes overlap as the polygon NMS needs; char class
+    OCR_CHAR_CLASS ahead of every other by 12. Returns the share of cells
+    over the word threshold and of those over the char threshold, after
+    the shift."""
+    import torch
+
+    def head_outputs(head, feat):
+        logits = head.fg_pred(head.fg_feat(head.det_conv_final(feat)))
+        reg = head.reg_feat(head.det_conv_final(feat))
+        out = {"gap": (logits[..., 1] - logits[..., 0]).reshape(-1),
+               "tblr": head.tblr_pred(reg).reshape(-1, 4)}
+        if hasattr(head, "orient_pred"):
+            out["orient"] = head.orient_pred(reg).reshape(-1, 1)
+        return out
+
+    with torch.no_grad():
+        outs = {"word": [], "char": []}
+        gap = []
+        for x in images:
+            feat = model.backbone(x.cuda())
+            outs["word"].append(head_outputs(model.word_detector, feat))
+            outs["char"].append(head_outputs(model.char_detector, feat))
+            h = feat
+            for i in range(3):
+                h = getattr(model, f"recog_{i}")(h)
+            cls = model.recog_cls(h).reshape(-1, model.recog_cls.out_channels)
+            gap.append(cls.max(dim=1).values - cls[:, OCR_CHAR_CLASS])
+        cat = {k: {n: torch.cat([o[n] for o in v]) for n in v[0]}
+               for k, v in outs.items()}
+        dw, dc = cat["word"]["gap"], cat["char"]["gap"]
+        sw = torch.quantile(dw, 1 - OCR_WORD_SHARE).item()
+        # chars are read only on word cells: half of those pass p > 0.25
+        dc = dc[dw > sw]
+        sc = torch.quantile(dc, 0.5).item() + math.log(3.0)
+        model.word_detector.fg_pred.bias[1] -= sw
+        model.char_detector.fg_pred.bias[1] -= sc
+        for name, head in (("word", model.word_detector),
+                           ("char", model.char_detector)):
+            _affine_head(head.tblr_pred, cat[name]["tblr"], 1.5, 0.05)
+        _affine_head(model.word_detector.orient_pred, cat["word"]["orient"],
+                     0.0, 0.05)
+        model.recog_cls.bias[OCR_CHAR_CLASS] += torch.cat(gap).max() + 12.0
+        return (float((dw - sw > 0).float().mean()),
+                float((dc - sc > -math.log(3.0)).float().mean()))
+
+
+def ocr_stages(model, x) -> None:
+    """Log how many boxes each stage of the OCR decode keeps on one
+    image (a failed run's diagnosis)."""
+    import numpy as np
+    import torch
+    from prismer_tpu_torch.experts.ocr_detection import postprocess as pp
+    with torch.no_grad():
+        m = {k: v[0].cpu().numpy() for k, v in model(x.cuda()).items()}
+    post = pp.OrientedTextPostProcessing()
+    wf = m["word_fg"][..., 1]
+    kw = dict(scale_w=640 / 480, scale_h=1.0, W=640, H=480)
+    wb, _ = pp._parse_boxes(wf, m["word_tblr"], m["word_orient"][..., 0],
+                            0.5, **kw)
+    keep, wb = pp.weighted_nms(wb, 0.15, num_neig=1)
+    cb, cs = pp._parse_boxes(m["char_fg"][..., 1], m["char_tblr"], None,
+                             0.25, **kw, extra_maps=m["char_cls"],
+                             keep_mask=wf > 0.5)
+    ck, cb, cs = pp.weighted_nms(cb, 0.3, num_neig=1, extra=cs)
+    words = post._assemble(pp._clip_round(wb[keep], 640, 480),
+                           pp._clip_round(cb[ck], 640, 480), cs[ck])
+    log(f"  ocr stages on one image: word cells {int((wf > 0.5).sum())}, "
+        f"word boxes after NMS {len(keep)}, char boxes {len(cb)} -> "
+        f"{len(ck)} after NMS, words assembled {len(words)}, text scores "
+        f"{[round(w.text_score, 3) for w in words][:8]}; tblr mean "
+        f"{np.round(m['word_tblr'].reshape(-1, 4).mean(0), 2).tolist()}, "
+        f"orient std {float(m['word_orient'].std()):.3f}")
+
+
+def phase_experts_generate(results, card: str):
+    """`experts.generate.main` on the card over 16 images in one folder,
+    synthetic PNGs and the 640 x 480 JPEG fixtures: depth, normal, edge at batch 16,
+    obj_detection on 2 of them (reading the depth labels just written),
+    ocr_detection with CLIP text weights and a vocabulary in a temporary
+    PRISMER_EXPERT_WEIGHTS, then seg_coco. Every label file must be where
+    `data.labels` reads it (OCR: only for images with words); per task the
+    images/s, the device time a batch or image (CUDA events), the host
+    time (wall minus device) and the peak memory."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from prismer_tpu_torch import native
+    from prismer_tpu_torch.data import png
+    from prismer_tpu_torch.experts import generate
+
+    cli_setup()                      # the demo phase's tokenizer and weights
+    (ROOT / "build").mkdir(exist_ok=True)
+    tree = Path(tempfile.mkdtemp(prefix="experts_", dir=ROOT / "build"))
+    images = tree / "helpers" / "images"
+    images.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 50)
+    sizes = {}
+    jpegs = big_fixtures()
+    for i in range(EXPERT_IMAGES - len(jpegs)):
+        size = SEG_SIZES[i % len(SEG_SIZES)]
+        png.write_png(str(images / f"{i:03d}.png"), seg_image(rng, size))
+        sizes[f"{i:03d}.png"] = size
+    for name in jpegs:
+        shutil.copy(JPEG_FIXTURES / name, images / name)
+        h, w = native.decode_jpeg_shape((JPEG_FIXTURES / name).read_bytes())
+        sizes[name] = (w, h)
+    weights = tree / "weights"
+    weights.mkdir()
+    write_clip_assets(weights)
+    old_env = os.environ.get("PRISMER_EXPERT_WEIGHTS")
+    os.environ["PRISMER_EXPERT_WEIGHTS"] = str(weights)
+    labels = tree / "labels"
+    real_load = generate.load_expert_model
+    shares = {}
+
+    def load(task, image_size, device):
+        model, preprocess = real_load(task, image_size, device)
+        if task == "ocr_detection":
+            xs = [torch.from_numpy(preprocess(generate.read_rgb(str(
+                images / n)))[None]) for n in sorted(sizes)[:4]]
+            shares.update(zip(("word", "char"), sparse_ocr(model, xs)))
+            shares.update(model=model, x=xs[0])
+        return model, preprocess
+
+    files = sorted(sizes)
+    t_all = time.perf_counter()
+    stats = {}
+    try:
+        generate.load_expert_model = load
+        for task in EXPERT_TASKS + ("seg_coco",):
+            argv = ["--task", task, "--data_path", str(tree / "helpers"),
+                    "--save_path", str(labels), "--batch_size",
+                    str(EXPERT_BATCH)]
+            if task == "obj_detection":
+                argv += ["--num_shards", str(OBJDET_SHARDS)]
+            torch.cuda.reset_peak_memory_stats()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = generate.main(argv)
+            total = time.perf_counter() - t0
+            expect(rc == 0, f"generate.main --task {task} returned {rc}")
+            run = dict(generate.LAST_RUN)
+            run.update(total=total, peak=torch.cuda.max_memory_allocated())
+            stats[task] = run
+            done = files[::OBJDET_SHARDS] if task == "obj_detection" else files
+            expect(run["images"] == len(done), f"{task}: {run['images']} "
+                   f"images, want {len(done)}")
+            for name in done:
+                w, h = sizes[name]
+                stem = os.path.splitext(name)[0]
+                path = labels / task / "helpers" / "images" / f"{stem}.png"
+                if task == "ocr_detection" and not path.exists():
+                    continue
+                expect(path.exists(), f"{task}: no label for {name}")
+                arr = png.read_png(str(path))
+                expect(arr.shape[:2] == (h, w), f"{task} {name}: label "
+                       f"{arr.shape}, image {(h, w)}")
+                side = {"obj_detection": ".json",
+                        "ocr_detection": ".pt"}.get(task)
+                if side:
+                    expect(path.with_suffix(side).exists(),
+                           f"{task}: no {side} for {name}")
+            batches = (-(-run["images"] // EXPERT_BATCH)
+                       if task in ("depth", "normal", "edge", "seg_coco")
+                       else run["images"])
+            unit = "batch" if batches < run["images"] else "image"
+            log(f"  {task}: {run['images']} images in {run['wall_s']:.2f} s "
+                f"({run['images'] / run['wall_s']:.2f} images/s); device "
+                f"{run['device_s'] * 1e3 / batches:.1f} ms a {unit} (CUDA "
+                f"events), host {run['host_s']:.2f} s; main() "
+                f"{total:.1f} s with the model's build; peak "
+                f"{run['peak'] / 2**30:.2f} GiB ({card})")
+        ocr = sorted((labels / "ocr_detection" / "helpers" / "images").glob(
+            "*.pt")) if (labels / "ocr_detection").exists() else []
+        words = 0
+        for p in ocr:
+            with np.load(p) as z:
+                words += sum(1 for k in z.files if not k.startswith("text_"))
+                feats = [z[k] for k in z.files if not k.startswith("text_")]
+            expect(all(f.shape == (64,) and np.isfinite(f).all()
+                       for f in feats), f"{p.name}: word features")
+        log(f"  ocr: cells over the word threshold / word cells over the "
+            f"char threshold after the shift "
+            f"{shares.get('word', 0):.4f} / {shares.get('char', 0):.3f}; "
+            f"{words} words on {len(ocr)} of {len(files)} images, embedded "
+            f"by the CLIP text encoder (768 wide, 12 layers) + PCA")
+        if not words:
+            ocr_stages(shares["model"], shares["x"])
+        expect(words > 0, "the OCR task wrote no word")
+    finally:
+        generate.load_expert_model = real_load
+        if old_env is None:
+            os.environ.pop("PRISMER_EXPERT_WEIGHTS", None)
+        else:
+            os.environ["PRISMER_EXPERT_WEIGHTS"] = old_env
+    _EXP.update(tree=tree, files=files, stats=stats)
+    log(f"  six tasks in {time.perf_counter() - t_all:.1f} s ({card})")
+
+
+def phase_experts_demo(results, card: str):
+    """`cli.demo` at Prismer-BASE (six experts, 480 px, bf16, the seed's
+    weights) over the 16 images and the labels "experts generate" wrote: a
+    caption for every image, kernels 1-5 launched."""
+    import shutil
+
+    from prismer_tpu_torch.cli import demo
+    c = cli_setup()
+    tree = _EXP["tree"]
+    try:
+        cfg = cli_yaml("caption", tree / "demo.yaml",
+                       data_path=f"'{tree / 'helpers'}'",
+                       label_path=f"'{tree / 'labels'}'")
+        rec = run_driver(demo, cli_argv(cfg, "experts_demo", "--pretrained",
+                                        c["npz480"]),
+                         (demo.caption_head, "generate_captions"))
+        report_driver("experts demo", rec, card, train=False)
+        counts = {k: sum(n[k] for n in rec["eval_counts"])
+                  for k in SERVE_KERNELS}
+        log("  experts demo: launches " + ", ".join(
+            f"{k}={counts[k]}" for k in SERVE_KERNELS))
+        expect(all(counts[k] > 0 for k in SERVE_KERNELS),
+               f"experts demo launches {counts}")
+        images = tree / "helpers" / "images"
+        caps = {n: (images / n).with_suffix(".txt") for n in _EXP["files"]}
+        expect(len(rec["evals"]) == len(caps), "experts demo generate calls")
+        missing = [n for n, p in caps.items() if not p.exists()]
+        expect(not missing, f"no caption for {missing}")
+        first = caps[_EXP["files"][0]].read_text()
+        log(f"  {len(caps)} captions from the port's own labels, e.g. "
+            f"{first!r}")
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
+        _EXP.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -4657,7 +5062,11 @@ def main(argv=None) -> int:
               ("segment parity", phase_segment_parity),
               ("segment", lambda r: phase_segment(r, card, args.profile,
                                                   tf32_defaults)),
-              ("segment jpeg", lambda r: phase_segment_jpeg(r, card)))
+              ("segment jpeg", lambda r: phase_segment_jpeg(r, card)),
+              ("experts parity", phase_experts_parity),
+              ("experts generate", lambda r: phase_experts_generate(r, card)),
+              ("experts demo", lambda r: phase_experts_demo(r, card)))
+    t_experts = 0.0
     for name, fn in phases:
         log(f"phase {name}")
         t0 = time.perf_counter()
@@ -4667,6 +5076,9 @@ def main(argv=None) -> int:
             log(f"FAILED phase {name}: {e}")
             return 1
         log(f"phase {name} passed in {time.perf_counter() - t0:.1f} s")
+        if name.startswith("experts "):
+            t_experts += time.perf_counter() - t0
+    log(f"the three experts phases: {t_experts:.1f} s")
     log(card)
     log(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

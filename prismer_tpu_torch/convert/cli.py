@@ -10,10 +10,15 @@ JAX package's key format), which the port loads with `load_npz_into`.
   python -m prismer_tpu_torch.convert.cli --kind roberta --src roberta-base.bin ...
   python -m prismer_tpu_torch.convert.cli --kind mask2former \\
       --src model_final_f07440.pkl --dst seg_coco.npz
+  python -m prismer_tpu_torch.convert.cli --kind {dpt,nnet,dexined,charnet,
+                                                  unidet} --src F --dst X.npz
+  python -m prismer_tpu_torch.convert.cli --kind clip_text \\
+      --src ViT-L-14.pt --dst clip_text_vit_l14.npz
 
-The kinds dpt, nnet, dexined, charnet, unidet and clip_text are the label
-experts the port has not ported yet (ROADMAP §1 item 8); they raise
-NotImplementedError.
+The expert kinds write the tree the label expert loads (the generator
+itself reads the reference's checkpoint files and converts them in
+memory); `clip_text` writes the OCR generator's CLIP text weights, read
+from PRISMER_EXPERT_WEIGHTS as `clip_text_vit_l14.npz`.
 
 Torch files are read with `weights_only=True` (or as a TorchScript archive,
 as OpenAI's CLIP files are), detectron2 .pkl files by an unpickler that
@@ -37,8 +42,9 @@ from prismer_tpu_torch.train.checkpoint import load_params_npz, save_tree_npz
 FULL_EXPERTS = ["depth", "normal", "seg_coco", "edge", "obj_detection",
                 "ocr_detection"]
 CORE_KINDS = ("prismer", "clip_vision", "roberta")
-UNPORTED_KINDS = ("dpt", "nnet", "dexined", "charnet", "unidet", "clip_text")
-KINDS = CORE_KINDS + ("mask2former",) + UNPORTED_KINDS
+EXPERT_KINDS = ("dpt", "nnet", "dexined", "charnet", "mask2former", "unidet",
+                "clip_text")
+KINDS = CORE_KINDS + EXPERT_KINDS
 
 
 def _is_torchscript(path: str) -> bool:
@@ -78,13 +84,12 @@ def convert(kind: str, sd: Dict[str, Any], prismer_model: str = "prismer_base",
             experts: Any = "full", image_resolution: int = 224
             ) -> Dict[str, Any]:
     """The tree `--kind` writes for state dict `sd`."""
-    if kind in UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"--kind {kind}: this label expert is not ported yet "
-            f"(ROADMAP §1 item 8)")
-    if kind == "mask2former":
-        from prismer_tpu_torch.convert.experts import convert_mask2former
-        return convert_mask2former(sd)
+    if kind == "clip_text":
+        from prismer_tpu_torch.experts.clip_text import convert_clip_text
+        return convert_clip_text(sd)
+    if kind in EXPERT_KINDS:
+        from prismer_tpu_torch.convert import experts as cve
+        return getattr(cve, f"convert_{kind}")(sd)
     if kind not in CORE_KINDS:
         raise ValueError(f"unknown kind {kind!r}")
     from prismer_tpu_torch.config import build_prismer_config
@@ -130,8 +135,6 @@ def main(argv=None) -> None:
                     help="'full', 'none', or comma-separated list")
     ap.add_argument("--image_resolution", type=int, default=224)
     args = ap.parse_args(argv)
-    if args.kind in UNPORTED_KINDS:   # before reading the file
-        convert(args.kind, {})
     sd = _load_sd(args.src)
     _save(convert(args.kind, sd, args.prismer_model, args.experts,
                   args.image_resolution), args.dst)

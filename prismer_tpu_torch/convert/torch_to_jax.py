@@ -32,22 +32,13 @@ from typing import Any, Dict, Tuple
 import numpy as np
 
 from prismer_tpu_torch.config import PrismerConfig
-from prismer_tpu_torch.convert.experts import _np, conv, linear
+from prismer_tpu_torch.convert.experts import _np, batch_norm, conv, linear
 from prismer_tpu_torch.models.layers import _bicubic_matrix
 
 
 def layer_norm(sd: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
     return {"scale": _np(sd[f"{prefix}.weight"]),
             "bias": _np(sd[f"{prefix}.bias"])}
-
-
-def batch_norm(sd: Dict[str, Any], prefix: str
-               ) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
-    params = {"scale": _np(sd[f"{prefix}.weight"]),
-              "bias": _np(sd[f"{prefix}.bias"])}
-    stats = {"mean": _np(sd[f"{prefix}.running_mean"]),
-             "var": _np(sd[f"{prefix}.running_var"])}
-    return params, stats
 
 
 def packed_mha(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:

@@ -1,17 +1,24 @@
 """Expert model bank: `load_expert_model(task)`, ported from
-prismer_tpu/experts/model_bank.py for the segmentation experts.
+prismer_tpu/experts/model_bank.py.
 
-`load_expert_model('seg_coco' | 'seg_ade', image_size, device)` returns
-(model, preprocess): the Mask2Former on `device` in eval mode, with the
-published weights converted when the checkpoint file is present and random
-weights from a fixed seed (with a loud warning) when it is not; and a
-host-side callable uint8 (H, W[, C]) image -> (S, S, 3) float32 array that
-resizes as PIL's BILINEAR does and applies the detectron2 pixel statistics.
-The other experts raise NotImplementedError until the port carries them
-(ROADMAP §1 item 8).
+`load_expert_model(task, image_size, device)` returns (model, preprocess)
+for the seven tasks: depth (DPT-hybrid), normal (NNET), edge (DexiNed),
+seg_coco / seg_ade (Mask2Former), obj_detection (UniDet) and
+ocr_detection (CharNet). The model is on `device`, fp32, in eval mode,
+with the published weights converted when the checkpoint file is present
+and random weights from a fixed seed (with a loud warning) when it is
+not; a converted file must cover all but 1 % of the model's tensors
+(`merge_converted`). `preprocess` is a host-side callable uint8 (H, W[,
+C]) image -> (S, S, 3) float32 array that resizes as PIL's BILINEAR does
+and applies the expert's pixel statistics. UniDet is returned as a module
+whose `features` / `rpn_proposals` / `cascade_stage` methods the caller
+drives (`obj_detection.rcnn.detect_single`), as in the JAX package.
 
 Checkpoints are searched under PRISMER_EXPERT_WEIGHTS (default
-'experts/expert_weights') by the reference's file names.
+'experts/expert_weights') by the reference's file names. `.pt` / `.pth`
+files are read with `torch.load(..., weights_only=True)`, detectron2
+`.pkl` files by an unpickler that takes arrays and plain containers only:
+reading a checkpoint runs none of its code.
 """
 
 from __future__ import annotations
@@ -42,6 +49,19 @@ NUM_CLASSES = {"seg_coco": 133, "seg_ade": 150}
 # detectron2 PIXEL_MEAN / PIXEL_STD over 255
 SEG_MEAN = np.array([123.675, 116.28, 103.53], np.float32) / 255.0
 SEG_STD = np.array([58.395, 57.12, 57.375], np.float32) / 255.0
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+# UniDet's PIXEL_MEAN / PIXEL_STD over 255
+OBJDET_MEAN = np.array([123.68, 116.779, 103.939], np.float32) / 255.0
+OBJDET_STD = np.array([58.393, 57.12, 57.375], np.float32) / 255.0
+# (mean, std) of each expert's preprocess
+PIXEL_STATS = {"depth": (0.5, 0.5),
+               "normal": (IMAGENET_MEAN, IMAGENET_STD),
+               "edge": (IMAGENET_MEAN, (1.0, 1.0, 1.0)),
+               "seg_coco": (SEG_MEAN, SEG_STD),
+               "seg_ade": (SEG_MEAN, SEG_STD),
+               "obj_detection": (OBJDET_MEAN, OBJDET_STD),
+               "ocr_detection": (IMAGENET_MEAN, IMAGENET_STD)}
 RANDOM_SEED = 0
 # fraction of param leaves a converted checkpoint may leave at their random
 # init before the load is taken for a key-layout drift and refused
@@ -71,9 +91,11 @@ class _ArrayUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
-def _load_pkl_ckpt(task: str) -> Optional[Dict[str, Any]]:
-    """The detectron2 raw-pickle checkpoint's 'model' dict for `task`, or
-    None (with a loud warning) when the file is absent."""
+def load_checkpoint(task: str) -> Optional[Dict[str, Any]]:
+    """The state dict of `task`'s checkpoint file (a detectron2 .pkl's
+    'model' dict; a torch file's 'model' or 'state_dict' entry when it has
+    one), or None (with a loud warning) when the file is absent. A torch
+    file that `weights_only=True` cannot read raises with its path."""
     path = os.path.join(_weights_dir(), WEIGHTS[task])
     if not os.path.exists(path):
         warnings.warn(
@@ -82,10 +104,19 @@ def _load_pkl_ckpt(task: str) -> Optional[Dict[str, Any]]:
             f"noise. Provide the file or set PRISMER_EXPERT_WEIGHTS.",
             stacklevel=3)
         return None
-    with open(path, "rb") as f:
-        sd = _ArrayUnpickler(f, encoding="latin1").load()
+    if path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            sd = _ArrayUnpickler(f, encoding="latin1").load()
+    else:
+        try:
+            sd = torch.load(path, map_location="cpu", weights_only=True)
+        except Exception as e:
+            raise ValueError(f"{path}: not readable with torch.load("
+                             f"weights_only=True): {e}") from e
     if isinstance(sd, dict) and isinstance(sd.get("model"), dict):
         sd = sd["model"]
+    if isinstance(sd, dict) and isinstance(sd.get("state_dict"), dict):
+        sd = sd["state_dict"]
     return sd
 
 
@@ -93,12 +124,13 @@ def merge_converted(model: torch.nn.Module, tree: Dict[str, Any],
                     task: str = "expert") -> None:
     """Load a converted flax tree into `model` (which holds its random
     init), strictly on names and shapes, leaving uncovered parameters at
-    their init - but refuse when the tree covers too few of them: the
-    experts are frozen, so a silently partial load (renamed keys in a newly
-    released file) would give noise labels with no other sign."""
+    their init - but refuse when the tree (its params and batch_stats)
+    covers too few of them: the experts are frozen, so a silently partial
+    load (renamed keys in a newly released file) would give noise labels
+    with no other sign."""
     state = model.state_dict()
-    covered = {torch_key_and_value("params", path, v)[0]
-               for path, v in _leaves(tree["params"])}
+    covered = {torch_key_and_value(coll, path, v)[0]
+               for coll, sub in tree.items() for path, v in _leaves(sub)}
     missing = sorted(set(state) - covered)
     total = len(state)
     if len(missing) > _MAX_UNCOVERED_FRACTION * total:
@@ -116,7 +148,8 @@ def merge_converted(model: torch.nn.Module, tree: Dict[str, Any],
                       f"/{total} param leaves kept random init: {missing}",
                       stacklevel=3)
     merged = to_jax_variables({k: state[k] for k in missing})
-    _overlay(merged.setdefault("params", {}), tree["params"])
+    for coll, sub in tree.items():
+        _overlay(merged.setdefault(coll, {}), sub)
     load_jax_variables(model, merged)
 
 
@@ -146,21 +179,48 @@ def resize_norm(size: int, mean, std) -> Callable[[np.ndarray], np.ndarray]:
     return fn
 
 
+def _build(task: str, device) -> torch.nn.Module:
+    """`task`'s expert at the published widths from the fixed seed."""
+    from prismer_tpu_torch.experts.layers import build_random
+    if task in ("seg_coco", "seg_ade"):
+        from prismer_tpu_torch.experts.segmentation.mask2former import \
+            build_random_maskformer
+        return build_random_maskformer(RANDOM_SEED, device,
+                                       num_classes=NUM_CLASSES[task])
+    if task == "depth":
+        from prismer_tpu_torch.experts.depth.model import (RAW_INIT,
+                                                           DPTDepthModel)
+        return build_random(DPTDepthModel, RANDOM_SEED, device, RAW_INIT)
+    if task == "normal":
+        from prismer_tpu_torch.experts.normal.model import NNET
+        return build_random(NNET, RANDOM_SEED, device)
+    if task == "edge":
+        from prismer_tpu_torch.experts.edge.model import DexiNed
+        return build_random(DexiNed, RANDOM_SEED, device)
+    if task == "obj_detection":
+        from prismer_tpu_torch.experts.obj_detection.rcnn import UniDet
+        return build_random(UniDet, RANDOM_SEED, device)
+    from prismer_tpu_torch.experts.ocr_detection.model import CharNet
+    return build_random(CharNet, RANDOM_SEED, device)
+
+
+def converter(task: str) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
+    """The function that turns `task`'s checkpoint into a flax tree."""
+    from prismer_tpu_torch.convert import experts as cve
+    return {"depth": cve.convert_dpt, "normal": cve.convert_nnet,
+            "edge": cve.convert_dexined, "seg_coco": cve.convert_mask2former,
+            "seg_ade": cve.convert_mask2former,
+            "obj_detection": cve.convert_unidet,
+            "ocr_detection": cve.convert_charnet}[task]
+
+
 def load_expert_model(task: str, image_size: int = 480,
                       device: torch.device | str = "cuda"
                       ) -> Tuple[torch.nn.Module, Callable]:
-    if task in ("seg_coco", "seg_ade"):
-        from prismer_tpu_torch.convert.experts import convert_mask2former
-        from prismer_tpu_torch.experts.segmentation.mask2former import \
-            build_random_maskformer
-        model = build_random_maskformer(RANDOM_SEED, device,
-                                        num_classes=NUM_CLASSES[task])
-        sd = _load_pkl_ckpt(task)
-        if sd is not None:
-            merge_converted(model, convert_mask2former(sd), task)
-        return model, resize_norm(image_size, SEG_MEAN, SEG_STD)
-    if task in WEIGHTS:
-        raise NotImplementedError(
-            f"expert '{task}' is not ported to prismer_tpu_torch yet "
-            f"(ROADMAP §1 item 8, the other label experts)")
-    raise ValueError(f"unknown expert task: {task}")
+    if task not in WEIGHTS:
+        raise ValueError(f"unknown expert task: {task}")
+    model = _build(task, device)
+    sd = load_checkpoint(task)
+    if sd is not None:
+        merge_converted(model, converter(task)(sd), task)
+    return model, resize_norm(image_size, *PIXEL_STATS[task])

@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from prismer_tpu_torch.experts.layers import build_random, normal_init
 from prismer_tpu_torch.experts.ops.deform_attn import ms_deform_attn
 from prismer_tpu_torch.experts.segmentation.swin import (FP32,
                                                         SwinTransformer,
@@ -356,46 +357,15 @@ class MaskFormer(nn.Module):
         return semantic_logits(*self.predictor(ms, mask_features))
 
 
-def random_values(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
-    """The fp32 value of every parameter drawn from `seed`, on the CPU,
-    keyed by state_dict name, with flax's initialisers: lecun-normal
-    (truncated at two standard deviations) Dense and Conv kernels, zero
-    biases, unit norm scales, N(0, 1) level embeddings and queries,
-    N(0, 0.02) relative-position tables. Draws run in module order."""
-    gen = torch.Generator().manual_seed(seed)
-    values: Dict[str, torch.Tensor] = {}
-    for mod_name, mod in model.named_modules():
-        for leaf, p in mod.named_parameters(recurse=False):
-            name = f"{mod_name}.{leaf}" if mod_name else leaf
-            shape = tuple(p.shape)
-            if isinstance(mod, (nn.Linear, nn.Conv2d)) and leaf == "weight":
-                fan_in = math.prod(shape[1:])
-                # flax variance_scaling(1, fan_in, truncated_normal)
-                std = 1.0 / math.sqrt(fan_in) / .87962566103423978
-                x = torch.empty(shape)
-                nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-                values[name] = x * std
-            elif leaf == "bias":
-                values[name] = torch.zeros(shape)
-            elif leaf == "weight":            # LayerNorm / GroupNorm scale
-                values[name] = torch.ones(shape)
-            elif leaf == "rel_pos_bias":
-                values[name] = torch.randn(shape, generator=gen) * 0.02
-            elif leaf in ("level_embed", "query_feat", "query_embed"):
-                values[name] = torch.randn(shape, generator=gen)
-            else:
-                raise KeyError(f"no initialiser for {name}")
-    return values
+# flax initialisers of the raw parameters (the kernels, biases and norm
+# scales follow `experts.layers.init_random_`)
+RAW_INIT = {"rel_pos_bias": normal_init(0.02), "level_embed": normal_init(1.0),
+            "query_feat": normal_init(1.0), "query_embed": normal_init(1.0)}
 
 
-@torch.no_grad()
 def build_random_maskformer(seed: int, device: torch.device | str = "cuda",
                             **widths) -> MaskFormer:
     """A frozen MaskFormer in eval mode on `device` with weights drawn from
-    `seed` (built on the meta device first, so no default initialisation
-    runs). `widths` are MaskFormer's arguments."""
-    model = MaskFormer(device="meta", **widths).to_empty(device=device)
-    params = dict(model.named_parameters())
-    for name, value in random_values(model, seed).items():
-        params[name].copy_(value)
-    return model.eval().requires_grad_(False)
+    `seed` with flax's initialisers (built on the meta device first, so no
+    default initialisation runs). `widths` are MaskFormer's arguments."""
+    return build_random(MaskFormer, seed, device, RAW_INIT, **widths)

@@ -16,6 +16,9 @@ The JAX package splits text with the `regex` package's `\\p{L}`, `\\p{N}` and
 Python's `re` over the code-point ranges of `unicode_classes.py`, which
 tools/gen_unicode_classes.py generates from `regex` (Python's `\\s` also
 takes U+001C-U+001F, and `unicodedata` follows an older Unicode).
+
+`CLIPTokenizer` is OpenAI CLIP's SimpleTokenizer, as the JAX package has
+it; its split pattern's classes come from the same table.
 """
 
 from __future__ import annotations
@@ -29,7 +32,10 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from prismer_tpu_torch.unicode_classes import (LETTER_RANGES, NUMBER_RANGES,
+from prismer_tpu_torch.unicode_classes import (CLIP_DIGIT_RANGES,
+                                               CLIP_LETTER_RANGES,
+                                               CLIP_OTHER_RANGES,
+                                               LETTER_RANGES, NUMBER_RANGES,
                                                SPACE_RANGES)
 
 
@@ -280,3 +286,111 @@ def synthetic_tokenizer(vocab_size: int = 512) -> BPETokenizer:
     kept = [m for m in merges if m[0] in vocab and m[1] in vocab
             and (m[0] + m[1]) in vocab]
     return BPETokenizer(vocab, kept)
+
+
+# ---------------------------------------------------------------------------
+# CLIP text tokenizer (OpenAI SimpleTokenizer), ported from
+# prismer_tpu/tokenizer.py
+# ---------------------------------------------------------------------------
+
+# <|startoftext|>|<|endoftext|>|'s|'t|'re|'ve|'m|'ll|'d|[^\W\d_]+|\d|[^\s\w]+|_+
+# under IGNORECASE in `regex`: the literals keep the flag, the classes are
+# the sets `regex` matches with it
+_CLIP_PAT = re.compile(
+    r"(?i:<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d)"
+    rf"|[{_char_class(CLIP_LETTER_RANGES)}]+"
+    rf"|[{_char_class(CLIP_DIGIT_RANGES)}]"
+    rf"|[{_char_class(CLIP_OTHER_RANGES)}]+|_+")
+
+
+class CLIPTokenizer:
+    """OpenAI CLIP's SimpleTokenizer, which the reference's OCR generator
+    calls (clip.tokenize of the recognised words): the byte -> unicode map,
+    BPE with a word-final '</w>', vocabulary = 256 bytes + 256 byte+'</w>'
+    + one token per merge + <|startoftext|> / <|endoftext|>; context 77,
+    zero-padded.
+
+    The merges come from bpe_simple_vocab_16e6.txt(.gz);
+    `synthetic_clip_tokenizer` builds a tiny stand-in for tests."""
+
+    def __init__(self, merges: List[Tuple[str, str]], context: int = 77):
+        self.byte_encoder = bytes_to_unicode()
+        vocab = list(self.byte_encoder.values())
+        vocab += [v + "</w>" for v in vocab]
+        vocab += ["".join(m) for m in merges]
+        vocab += ["<|startoftext|>", "<|endoftext|>"]
+        self.encoder = {t: i for i, t in enumerate(vocab)}
+        self.bpe_ranks = {m: i for i, m in enumerate(merges)}
+        self.context = context
+        self.sot = self.encoder["<|startoftext|>"]
+        self.eot = self.encoder["<|endoftext|>"]
+        self.vocab_size = len(vocab)
+        self._cache: Dict[str, List[str]] = {}
+
+    @classmethod
+    def from_file(cls, path: str, context: int = 77) -> "CLIPTokenizer":
+        """bpe_simple_vocab_16e6.txt(.gz): the first line is a version
+        header; CLIP reads merges[1 : 49152 - 256 - 2 + 1]."""
+        import gzip
+        opener = gzip.open if path.endswith(".gz") else open
+        with opener(path, "rt", encoding="utf-8") as f:
+            lines = f.read().split("\n")
+        lines = lines[1: 49152 - 256 - 2 + 1]
+        merges = [tuple(line.split()) for line in lines if line.strip()]
+        return cls(merges, context)
+
+    def _bpe(self, token: str) -> List[str]:
+        if token in self._cache:
+            return self._cache[token]
+        word = tuple(token[:-1]) + (token[-1] + "</w>",)
+        while len(word) > 1:
+            pairs = set(zip(word[:-1], word[1:]))
+            best = min(pairs, key=lambda p: self.bpe_ranks.get(p, 1 << 30))
+            if best not in self.bpe_ranks:
+                break
+            first, second = best
+            out: List[str] = []
+            i = 0
+            while i < len(word):
+                if (i < len(word) - 1 and word[i] == first
+                        and word[i + 1] == second):
+                    out.append(first + second)
+                    i += 2
+                else:
+                    out.append(word[i])
+                    i += 1
+            word = tuple(out)
+        res = list(word)
+        self._cache[token] = res
+        return res
+
+    def encode(self, text: str) -> List[int]:
+        import html
+        text = html.unescape(html.unescape(text))
+        text = re.sub(r"\s+", " ", text).strip().lower()
+        ids: List[int] = []
+        for tok in _CLIP_PAT.findall(text):
+            mapped = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
+            ids.extend(self.encoder[t] for t in self._bpe(mapped))
+        return ids
+
+    def __call__(self, texts: Sequence[str]) -> np.ndarray:
+        """clip.tokenize: (N, 77) int32, <sot> ids <eot>, zero-padded;
+        over-long inputs truncated with the <eot> kept."""
+        out = np.zeros((len(texts), self.context), np.int32)
+        for i, t in enumerate(texts):
+            ids = [self.sot] + self.encode(t)[: self.context - 2] + [self.eot]
+            out[i, : len(ids)] = ids
+        return out
+
+
+CLIP_SYNTHETIC_MERGES = (
+    ("t", "h"), ("th", "e</w>"), ("a", "n"), ("an", "d</w>"), ("i", "n"),
+    ("o", "n</w>"), ("e", "r</w>"), ("s", "t"), ("c", "a"), ("ca", "t</w>"),
+    ("d", "o"), ("do", "g</w>"))
+
+
+def synthetic_clip_tokenizer(context: int = 77) -> CLIPTokenizer:
+    """Tiny deterministic CLIP-style tokenizer for tests (the same
+    mechanics, a handful of merges)."""
+    return CLIPTokenizer(list(CLIP_SYNTHETIC_MERGES), context)

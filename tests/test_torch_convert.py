@@ -212,13 +212,69 @@ def test_cli_roberta_and_clip_kinds_match_jax(tmp_path, monkeypatch):
                                        else 0, err_msg=key)
 
 
-@pytest.mark.parametrize("kind", port_cli.UNPORTED_KINDS)
-def test_unported_kinds_name_the_roadmap_item(kind, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        port_cli.convert(kind, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        port_cli.main(["--kind", kind, "--src", str(tmp_path / "absent"),
-                       "--dst", str(tmp_path / "x.npz")])
+def _small(shapes):
+    """A flax shape tree with every axis cut to at most 2: the converters
+    only permute and rename, so the keys and ranks are what they read."""
+    return jax.tree.map(lambda s: jax.ShapeDtypeStruct(
+        tuple(min(d, 2) for d in s.shape), s.dtype), shapes)
+
+
+def _expert_state_dict(kind):
+    """A reference-layout state dict for each label-expert kind, its arrays
+    cut to at most 2 along every axis."""
+    import jax.numpy as jnp
+
+    import synth_sd as synth
+    img = jnp.zeros((1, 64, 64, 3))
+    if kind == "dpt":
+        from test_torch_expert_depth import _dpt12_shapes, synth_dpt_sd
+        return synth_dpt_sd(_small(_dpt12_shapes()[1])["params"])
+    if kind == "nnet":
+        from prismer_tpu.experts.normal.model import NNET
+        from test_torch_expert_normal import synth_nnet_sd
+        return synth_nnet_sd(_small(jax.eval_shape(
+            NNET().init, jax.random.key(0), img)))
+    if kind == "dexined":
+        from prismer_tpu.experts.edge.model import DexiNed
+        from test_torch_expert_edge import synth_dexined_sd
+        return synth_dexined_sd(_small(jax.eval_shape(
+            DexiNed().init, jax.random.key(0), img)))
+    if kind == "charnet":
+        from prismer_tpu.experts.ocr_detection.model import CharNet
+        return synth.synth_charnet_sd(_small(jax.eval_shape(
+            CharNet().init, jax.random.key(0), img)))
+    if kind == "unidet":
+        from prismer_tpu.experts.obj_detection.rcnn import UniDet
+        from prismer_tpu.experts.obj_detection.resnest import \
+            RESNEST200_BLOCKS
+        from test_torch_expert_objdet import unidet_shapes
+        shapes = _small(unidet_shapes(UniDet(), 64))
+        return synth.synth_unidet_sd(shapes["params"], shapes["batch_stats"],
+                                     RESNEST200_BLOCKS)
+    from test_torch_expert_ocr import _synth_clip_sd
+    return _synth_clip_sd(60, 32, 3)
+
+
+@pytest.mark.parametrize("kind", ["dpt", "nnet", "dexined", "charnet",
+                                  "unidet", "clip_text"])
+def test_expert_kinds_write_the_jax_npz(kind, tmp_path, monkeypatch):
+    """Each label-expert kind: a reference-layout `.pt` through both CLIs
+    gives the same .npz, leaf for leaf."""
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in _expert_state_dict(kind).items()}
+    src = tmp_path / "expert.pt"
+    torch.save(sd, src)
+    args = ["--kind", kind, "--src", str(src)]
+    _run_cli(jax_cli.main, args + ["--dst", str(tmp_path / "j.npz")],
+             monkeypatch)
+    port_cli.main(args + ["--dst", str(tmp_path / "p.npz")])
+    want, got = np.load(tmp_path / "j.npz"), np.load(tmp_path / "p.npz")
+    assert sorted(got.files) == sorted(want.files) and len(got.files) > 20
+    for key in want.files:
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert set(port_cli.KINDS) == {"prismer", "clip_vision", "roberta",
+                                   "mask2former", "dpt", "nnet", "dexined",
+                                   "charnet", "unidet", "clip_text"}
 
 
 def test_pkl_files_are_read_without_running_code(tmp_path):

@@ -29,14 +29,15 @@ from prismer_tpu_torch.ops import flash_attention as port_fa
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "flax", "optax", "orbax", "yaml", "regex", "PIL")
+BLOCKED = ("jax", "flax", "optax", "orbax", "yaml", "regex", "PIL", "cv2")
 
 
 def test_package_imports_without_jax_flax_yaml_regex_pil():
     """Every module (train/, ops/fused_ce, ops/layer_norm, ops/ln_proj, the
     segmentation expert's experts/, convert/experts, data/png,
-    data/pil_warp, the cli/ drivers and train/profiling among them) imports
-    with jax, flax, optax, orbax, yaml, regex and PIL unimportable."""
+    data/pil_warp, the cli/ drivers, train/profiling and the label experts
+    among them) imports with jax, flax, optax, orbax, yaml, regex, PIL and
+    cv2 unimportable."""
     code = "\n".join([
         "import sys, importlib, pkgutil",
         f"for m in {BLOCKED!r}:",
@@ -66,6 +67,17 @@ def test_package_imports_without_jax_flax_yaml_regex_pil():
         "        'prismer_tpu_torch.experts.segmentation.mask2former',",
         "        'prismer_tpu_torch.experts.model_bank',",
         "        'prismer_tpu_torch.experts.generate',",
+        "        'prismer_tpu_torch.experts.layers',",
+        "        'prismer_tpu_torch.experts.clip_text',",
+        "        'prismer_tpu_torch.experts.objdet_postprocess',",
+        "        'prismer_tpu_torch.experts.depth.model',",
+        "        'prismer_tpu_torch.experts.normal.model',",
+        "        'prismer_tpu_torch.experts.edge.model',",
+        "        'prismer_tpu_torch.experts.obj_detection.resnest',",
+        "        'prismer_tpu_torch.experts.obj_detection.rcnn',",
+        "        'prismer_tpu_torch.experts.ocr_detection.model',",
+        "        'prismer_tpu_torch.experts.ocr_detection.postprocess',",
+        "        'prismer_tpu_torch.experts.ocr_detection.fill',",
         "        'prismer_tpu_torch.convert.experts',",
         "        'prismer_tpu_torch.data.png',",
         "        'prismer_tpu_torch.data.pil_warp',",

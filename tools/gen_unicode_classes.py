@@ -3,7 +3,8 @@
     python3 tools/gen_unicode_classes.py [--check]
 
 The GPT-2 pre-tokenizer splits text with `\\p{L}`, `\\p{N}` and `\\s` as the
-`regex` package defines them. Python's `re` has no `\\p{...}`, its `\\s`
+`regex` package defines them; CLIP's pre-tokenizer with `[^\\W\\d_]`, `\\d` and
+`[^\\s\\w]` under IGNORECASE. Python's `re` has no `\\p{...}`, its `\\s`
 also takes U+001C-U+001F, and `unicodedata` follows an older Unicode than
 `regex` does, so the port's tokenizer (which must not need `regex`) reads
 these classes from a committed table of code-point ranges. This script
@@ -22,6 +23,10 @@ TARGET = (Path(__file__).resolve().parents[1] / "prismer_tpu_torch"
           / "unicode_classes.py")
 CLASSES = (("LETTER_RANGES", r"\p{L}+"), ("NUMBER_RANGES", r"\p{N}+"),
            ("SPACE_RANGES", r"\s+"))
+# CLIP's SimpleTokenizer classes, matched with IGNORECASE
+CLIP_CLASSES = (("CLIP_LETTER_RANGES", r"[^\W\d_]+"),
+                ("CLIP_DIGIT_RANGES", r"\d+"),
+                ("CLIP_OTHER_RANGES", r"[^\s\w]+"))
 PER_LINE = 4
 
 
@@ -35,19 +40,31 @@ def class_ranges() -> Dict[str, List[Tuple[int, int]]]:
             for name, pattern in CLASSES}
 
 
+def clip_class_ranges() -> Dict[str, List[Tuple[int, int]]]:
+    """As `class_ranges`, for CLIP's classes under IGNORECASE."""
+    import regex
+    everything = "".join(map(chr, range(0x110000)))
+    return {name: [(m.start(), m.end() - 1) for m in regex.finditer(
+        pattern, everything, regex.IGNORECASE)]
+        for name, pattern in CLIP_CLASSES}
+
+
 def render() -> str:
     import regex
     lines = [
         'r"""Code-point ranges of the character classes that the GPT-2',
         "pre-tokenizer uses, as the `regex` package "
         f"({regex.__version__}) defines them:",
-        "`\\p{L}`, `\\p{N}` and `\\s`. Inclusive (first, last) pairs, sorted.",
+        "`\\p{L}`, `\\p{N}` and `\\s`; and those of CLIP's pre-tokenizer,",
+        "`[^\\W\\d_]`, `\\d` and `[^\\s\\w]` under IGNORECASE. Inclusive",
+        "(first, last) pairs, sorted.",
         "",
         "Generated by tools/gen_unicode_classes.py; do not edit.",
         '"""',
         "",
     ]
-    for name, ranges in class_ranges().items():
+    tables = {**class_ranges(), **clip_class_ranges()}
+    for name, ranges in tables.items():
         lines.append(f"{name} = (")
         for i in range(0, len(ranges), PER_LINE):
             chunk = ranges[i:i + PER_LINE]

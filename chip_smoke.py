@@ -3839,8 +3839,8 @@ def run_driver(module, argv, timed=None) -> dict:
     build = getattr(module, "build_train_step", None)
     original = getattr(*timed) if timed else None
 
-    def timed_build(model):
-        step = build(model)
+    def timed_build(model, *args):
+        step = build(model, *args)
 
         def timed_step(state, batch):
             torch.cuda.synchronize()
@@ -4944,6 +4944,304 @@ KERNELS = (
 )
 
 
+# ---------------------------------------------------------------------------
+# multi-gpu: the parallel/ package, sharded generation and the data-parallel
+# train step (ROADMAP §1 item 9)
+# ---------------------------------------------------------------------------
+
+MULTI_MODES = ("dp", "zero2", "zero3")
+MULTI_TIMED_STEPS = 5   # after 2 warm-up steps
+# tests/test_torch_train.py's tolerances: loss rel, gradient rel L2 per
+# trainable leaf, BatchNorm statistics
+TOL_MULTI_LOSS = 1e-5
+TOL_MULTI_GRAD = 1e-4
+TOL_MULTI_STATS = 1e-5
+# bf16 steps of the modes against dp on the same batch and seed: the
+# forward and the BatchNorm statistics agree under the fp32 tolerances
+# above; the gradients to rounding. Under zero3, FSDP2 passes each
+# sharded module's inputs through an autograd node of its own, so the
+# encoder output's gradient, which the decoder layers' cross-attention
+# sum in bf16, is summed in another order (on the CPU the decoder's
+# gradients stay bit-equal: tests/test_torch_parallel_train.py); 2^-4 is
+# 16 bf16 units of rounding
+TOL_MULTI_GRAD_BF16 = 2.0 ** -4
+
+
+def _open_group(device: str, backend: str):
+    """A one-rank group over a FileStore in a temporary directory."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from prismer_tpu_torch.parallel import runtime
+    tmp = tempfile.mkdtemp(prefix="prismer_pg_")
+    atexit.register(shutil.rmtree, tmp, True)
+    runtime.init(device, backend, dist.FileStore(f"{tmp}/store", 1), 0, 1)
+
+
+def _fp32_step_record(mode, mesh, batch):
+    """One fp32 BASE step (dropout 0) at the batch: `_step_record`; the
+    step without a group when mesh is None."""
+    import dataclasses
+
+    from prismer_tpu_torch.train import build_train_step
+
+    cfg = slice_config("float32")
+    cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, hidden_dropout_prob=0.0))
+    state = train_state(cfg, "cuda", 5e-5)
+    return _step_record(build_train_step(state.model, mesh, mode or "dp"),
+                        state, batch)
+
+
+def _step_record(step, state, batch):
+    """One step: its loss, the gradients and the BatchNorm statistics after
+    it, on the CPU."""
+    from prismer_tpu_torch.parallel import zero
+
+    state, metrics = step(state, batch)
+    grads = {n: g.float().cpu() for n, g in zero.full_grads(state).items()}
+    stats = {k: t.cpu() for k, t in zero.full_state(state)["model"].items()
+             if k.endswith(("running_mean", "running_var"))}
+    return float(metrics["loss"]), grads, stats
+
+
+def _check_step(label, got, want, relu_fed_apart: bool = False,
+                grad_tol: float = TOL_MULTI_GRAD):
+    """Loss, gradients and BatchNorm statistics of one step against
+    another's. relu_fed_apart: the two steps split the batch differently,
+    so the ReLU-fed stem leaves are held as "train parity" holds them
+    (TOL_TRAIN_GRAD_RELU) and every other leaf at grad_tol. Those leaves'
+    gradients are sums over (B, H, W) that cancel (sum |g| / |sum g| up
+    to 2.4e5 in a channel), so another order of the same sum moves them:
+    tools/probe_relu_fed.py reads them 5.6e-4 apart at 2 ranks, with
+    cuDNN deterministic too and no ReLU input across zero, and 5.7e-3
+    apart when one process takes the same rows in reverse order."""
+    import torch
+
+    (l_g, g_g, s_g), (l_w, g_w, s_w) = got, want
+    expect(g_g.keys() == g_w.keys() and len(g_w) > 100,
+           f"{label}: trainable leaves")
+    errs = {n: grad_rel(n, g_g[n], g_w[n], g_w) for n in g_w}
+    apart = {n for n in errs if relu_fed_apart and RELU_FED.search(n)}
+    worst = max(set(errs) - apart, key=errs.get)
+    e_loss = abs(l_g - l_w) / abs(l_w)
+    e_stats = max(((s_g[k] - s_w[k]).abs() / (1.0 + s_w[k].abs())).max()
+                  .item() for k in s_w)
+    equal = sum(torch.equal(g_g[n], g_w[n]) for n in g_w)
+    msg = (f"  {label}: loss rel {e_loss:.3g} (tol {TOL_MULTI_LOSS}), "
+           f"gradient rel L2 max {errs[worst]:.3g} at {worst} (tol "
+           f"{grad_tol}, {len(errs) - len(apart)} leaves, {equal} of "
+           f"{len(errs)} bit-equal)")
+    if apart:
+        worst_relu = max(apart, key=errs.get)
+        msg += (f", {errs[worst_relu]:.3g} at {worst_relu} (tol "
+                f"{TOL_TRAIN_GRAD_RELU}, {len(apart)} ReLU-fed stem leaves)")
+        expect(len(apart) == 72, f"{len(apart)} ReLU-fed stem leaves")
+        expect(errs[worst_relu] <= TOL_TRAIN_GRAD_RELU,
+               f"{label}: gradient of {worst_relu}")
+    log(msg + f", BatchNorm statistics max err {e_stats:.3g} (tol "
+        f"{TOL_MULTI_STATS})")
+    expect(e_loss <= TOL_MULTI_LOSS, f"{label}: loss")
+    expect(errs[worst] <= grad_tol, f"{label}: gradient of {worst}")
+    expect(e_stats <= TOL_MULTI_STATS, f"{label}: BatchNorm statistics")
+
+
+def phase_multi_gpu(results, card: str):
+    """`parallel.dryrun.entry()`'s loss; then part 1: NCCL at world size 1
+    in this process (sharded generation, the fp32 step of each mode
+    against the step without a group, bf16 ms/step of each mode); part 2:
+    two ranks on this one card over gloo (NCCL refuses two ranks on one
+    device)."""
+    import tempfile
+
+    import torch
+    from prismer_tpu_torch.models.caption import (build_generate_fn,
+                                                  build_sharded_generate_fn)
+    from prismer_tpu_torch.parallel import runtime
+    from prismer_tpu_torch.parallel.mesh import make_mesh
+    from prismer_tpu_torch.train import build_train_step
+
+    from prismer_tpu_torch.parallel import dryrun
+
+    fwd, args = dryrun.entry("cuda")
+    loss = float(fwd(*args))
+    log(f"  parallel.dryrun.entry(): BASE bf16 caption loss {loss:.4f}")
+    expect(math.isfinite(loss), "entry() loss not finite")
+    del fwd, args
+    torch.cuda.empty_cache()
+
+    wrap = wrappers()
+    per_path = {}
+    _open_group("cuda", "nccl")
+    try:
+        mesh = make_mesh(device="cuda")
+        cfg, model, requests = serve_setup()
+        req = requests[0]
+        want = build_generate_fn(model)(*req)
+        for fn in wrap.values():
+            fn.launches = 0
+        got = build_sharded_generate_fn(model, mesh)(*req)
+        torch.cuda.synchronize()
+        per_path["sharded generate"] = {n: wrap[n].launches
+                                        for n in SERVE_KERNELS}
+        log(f"  NCCL world 1, bf16 batch 8: sharded ids equal one "
+            f"process's {torch.equal(got, want)}; launches " + ", ".join(
+                f"{n}={c}" for n, c in per_path["sharded generate"].items()))
+        expect(torch.equal(got, want), "sharded generate ids differ")
+        expect(all(per_path["sharded generate"].values()),
+               "a serving kernel did not launch in sharded generate")
+
+        gen = torch.Generator().manual_seed(SEED + 11)
+        batch = caption_batch(slice_config("float32"), 2, gen, "cpu")
+        batch = _to_cuda(batch)
+        ref = _fp32_step_record(None, None, batch)
+        torch.cuda.empty_cache()
+        for mode in MULTI_MODES:
+            _check_step(f"fp32 step batch 2, {mode} at world 1 vs no group",
+                        _fp32_step_record(mode, mesh, batch), ref)
+            torch.cuda.empty_cache()
+
+        cfg16 = slice_config("bfloat16")
+        b4 = caption_batch(cfg16, 4, torch.Generator(device="cuda")
+                           .manual_seed(SEED + 12), "cuda")
+        first = {}
+        for mode in (None,) + MULTI_MODES:
+            state = train_state(cfg16, "cuda", TRAIN_LR)
+            step = build_train_step(state.model, None if mode is None
+                                    else mesh, mode or "dp")
+            torch.cuda.reset_peak_memory_stats()
+            first[mode] = _step_record(step, state, b4)
+            timed_steps(step, state, b4, 1)
+            for fn in wrap.values():
+                fn.launches = 0
+            losses, times = timed_steps(step, state, b4, MULTI_TIMED_STEPS)
+            label = mode or "no group"
+            per_path[f"train {label}"] = counts = {
+                n: wrap[n].launches for n in TRAIN_KERNELS}
+            ms = statistics.median(times)
+            log(f"  bf16 train step batch 4, {label}: {ms:.1f} ms/step "
+                f"(median of {' '.join(f'{t:.1f}' for t in times)}), peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, "
+                f"losses finite {all(map(math.isfinite, losses))}; launches "
+                f"a step " + ", ".join(
+                    f"{n}={c / MULTI_TIMED_STEPS:g}"
+                    for n, c in counts.items()) + f" ({card})")
+            expect(all(map(math.isfinite, losses)), f"{label}: loss")
+            expect(all(counts.values()), f"{label}: a training kernel did "
+                   f"not launch: {counts}")
+            del state, step
+            torch.cuda.empty_cache()
+        # the first of those steps: zero2 and zero3 against dp; dp against
+        # the step without a group shows what the same step gives twice
+        for mode, ref in (("dp", None), ("zero2", "dp"), ("zero3", "dp")):
+            _check_step(f"bf16 step batch 4, {mode} vs {ref or 'no group'} "
+                        "at world 1", first[mode], first[ref],
+                        grad_tol=TOL_MULTI_GRAD_BF16)
+        del first
+    finally:
+        runtime.shutdown()
+    for name in set(SERVE_KERNELS) | set(TRAIN_KERNELS):
+        results[name]["launches_multi_gpu"] = {
+            path: counts[name] for path, counts in per_path.items()
+            if name in counts}
+
+    # part 2: two ranks, gloo, this card
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ranks = runtime.spawn(_multi_gpu_rank, 2, "cuda", d, backend="gloo",
+                              timeout=600)
+    for r, rec in enumerate(ranks):
+        log(f"  gloo rank {r} of 2 on this card: own rows' ids equal one "
+            f"process's on them {rec['own_equal']}, gathered in rank order "
+            f"{rec['in_order']}; launches " + ", ".join(
+                f"{n}={c}" for n, c in rec["launches"].items()))
+        expect(rec["own_equal"] and rec["in_order"],
+               f"rank {r}: sharded ids")
+        expect(all(rec["launches"].values()),
+               f"rank {r}: a serving kernel did not launch")
+    r0 = ranks[0]
+    log(f"  against one process on the whole batch 8 (not a gate: cuBLAS "
+        f"picks its algorithm by shape): {r0['agree']} of 8 samples agree, "
+        f"largest first-step logit difference {r0['logit_diff']:.3g}")
+    _check_step("fp32 dp step batch 4 at 2 gloo ranks (BatchNorm synced, "
+                "dropout rows) vs one process", r0["dp"], r0["one"],
+                relu_fed_apart=True)
+    log("  zero2, zero3 and tensor parallelism at 2 ranks need all_gather / "
+        "reduce_scatter, which gloo lacks for CUDA tensors: they are held "
+        "on the CPU (tests/test_torch_parallel_*.py) and at world size 1 "
+        f"above; part 2 took {time.perf_counter() - t0:.1f} s")
+
+
+def _to_cuda(x):
+    if isinstance(x, dict):
+        return {k: _to_cuda(v) for k, v in x.items()}
+    return x.cuda()
+
+
+def _multi_gpu_rank():
+    """One of two ranks on one card over gloo (phase multi-gpu, part 2)."""
+    import dataclasses
+
+    import torch
+    from prismer_tpu_torch.models.caption import (build_generate_fn,
+                                                  build_sharded_generate_fn)
+    from prismer_tpu_torch.ops import _build
+    from prismer_tpu_torch.parallel import runtime
+    from prismer_tpu_torch.parallel.mesh import (batch_rows, make_mesh,
+                                                 shard_batch)
+    from prismer_tpu_torch.train import build_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.kernels()                 # the library phase build built
+    mesh = make_mesh(device="cuda")
+    wrap = wrappers()
+    cfg, model, requests = serve_setup()
+    raw, prompt, mask = requests[0]
+    rows = batch_rows(prompt.shape[0], mesh)
+    for fn in wrap.values():
+        fn.launches = 0
+    got = build_sharded_generate_fn(model, mesh)(raw, prompt, mask)
+    torch.cuda.synchronize()
+    out = {"launches": {n: wrap[n].launches for n in SERVE_KERNELS}}
+    one = build_generate_fn(model)
+    own = one(shard_batch(raw, mesh), prompt[rows], mask[rows])
+    whole = one(raw, prompt, mask)
+    out["own_equal"] = torch.equal(got[rows], own)
+    gathered = runtime.all_gather_object(got.cpu())
+    out["in_order"] = all(torch.equal(g, gathered[0]) for g in gathered)
+    out["agree"] = int((got == whole).all(dim=1).sum())
+    with torch.no_grad():
+        from prismer_tpu_torch.data.device import materialize_experts
+        from prismer_tpu_torch.models.prismer import compute_dtype
+        dt = compute_dtype(cfg)
+        enc_all = model.encode(materialize_experts(raw, dt))
+        enc_own = model.encode(materialize_experts(shard_batch(raw, mesh),
+                                                   dt))
+        lg_all = model.decode_logits(prompt, mask, enc_all)[rows]
+        lg_own = model.decode_logits(prompt[rows], mask[rows], enc_own)
+        out["logit_diff"] = (lg_all - lg_own).abs().max().item()
+    del model
+    _SERVE.clear()
+    torch.cuda.empty_cache()
+
+    cfg32 = slice_config("float32")
+    batch = _to_cuda(caption_batch(cfg32, 4, torch.Generator()
+                                   .manual_seed(SEED + 13), "cpu"))
+    records = {}
+    for name, m in (("dp", mesh), ("one", None)):
+        state = train_state(cfg32, "cuda", 5e-5)
+        step = build_train_step(state.model, m, "dp")
+        records[name] = _step_record(step, state, shard_batch(batch, mesh)
+                                     if m is not None else batch)
+        del state, step
+        torch.cuda.empty_cache()
+    if runtime.rank() == 0:
+        out.update(records)
+    return out
+
+
 class _Int8Steps:
     """The int8 fused step's launch count (kernel 4b), which the
     fused_decode_step wrapper keeps apart from kernel 4's."""
@@ -5065,7 +5363,8 @@ def main(argv=None) -> int:
               ("segment jpeg", lambda r: phase_segment_jpeg(r, card)),
               ("experts parity", phase_experts_parity),
               ("experts generate", lambda r: phase_experts_generate(r, card)),
-              ("experts demo", lambda r: phase_experts_demo(r, card)))
+              ("experts demo", lambda r: phase_experts_demo(r, card)),
+              ("multi-gpu", lambda r: phase_multi_gpu(r, card)))
     t_experts = 0.0
     for name, fn in phases:
         log(f"phase {name}")

@@ -3,12 +3,14 @@ prismer_tpu/cli/common.py: argument parsing, the task config (read by path
 with the port's YAML reader), the model and train state, pretrained
 weights, and the cross-process collectives.
 
-The port runs in one process on one device. `--device` (default cuda)
-picks it; without a CUDA device the drivers refuse to start unless given
-`--device cpu`. The multi-process flags and collectives raise
-NotImplementedError: they are ROADMAP §1 item 9 (multi-GPU). With one
-process the collectives return their input, as the JAX versions do when
-`jax.process_count() == 1`.
+`--device` (default cuda) picks the device; without a CUDA device the
+drivers refuse to start unless given `--device cpu`. `--multihost` opens
+the process group (parallel/runtime.py `init`, from the variables torchrun
+sets: NCCL for CUDA, gloo for the CPU); every loader then reads its
+process's shard of the data, and the train step is data parallel over all
+ranks: "dp" by default, ZeRO-2 with `--shard_grad_op`, ZeRO-3 with
+`--full_shard` (parallel/zero.py). With one process the collectives return
+their input, as the JAX versions do when `jax.process_count() == 1`.
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from prismer_tpu_torch.config import (PrismerConfig, build_prismer_config,
                                       default_config_path, load_task_config)
@@ -30,18 +31,18 @@ from prismer_tpu_torch.convert.torch_to_jax import convert_prismer_checkpoint
 from prismer_tpu_torch.data.device import experts_to_device
 from prismer_tpu_torch.models.prismer import (Prismer, build_random_prismer,
                                               random_masters)
+from prismer_tpu_torch.parallel import runtime
+from prismer_tpu_torch.parallel.mesh import make_mesh
 from prismer_tpu_torch.tokenizer import BPETokenizer, load_tokenizer
 from prismer_tpu_torch.train import TrainState
 from prismer_tpu_torch.train.checkpoint import load_params_npz
 from prismer_tpu_torch.train.schedules import Schedule
 
-MULTI_PROCESS = "ROADMAP §1 item 9 (multi-GPU)"
-MULTI_PROCESS_FLAGS = ("multihost", "shard_grad_op", "full_shard")
-
-__all__ = ["base_parser", "parse_args", "setup", "load_pretrained",
-           "build_state", "experts_to_device", "gather_for_metrics",
-           "gather_results", "broadcast_from_main", "is_main_process",
-           "dump_results"]
+__all__ = ["base_parser", "parse_args", "train_mode", "setup",
+           "load_pretrained", "build_state", "train_mesh", "loader_shard",
+           "epoch_steps",
+           "experts_to_device", "gather_for_metrics", "gather_results",
+           "broadcast_from_main", "is_main_process", "dump_results"]
 
 
 def base_parser(task: str) -> argparse.ArgumentParser:
@@ -54,9 +55,10 @@ def base_parser(task: str) -> argparse.ArgumentParser:
     p.add_argument("--from_checkpoint", action="store_true")
     p.add_argument("--evaluate", action="store_true")
     p.add_argument("--shard_grad_op", action="store_true",
-                   help="ZeRO-2 (not ported: " + MULTI_PROCESS + ")")
+                   help="ZeRO-2: shard the masters' optimizer state over "
+                        "the ranks")
     p.add_argument("--full_shard", action="store_true",
-                   help="ZeRO-3 (not ported: " + MULTI_PROCESS + ")")
+                   help="ZeRO-3: shard the parameters over the ranks")
     p.add_argument("--mixed_precision", default="bf16",
                    choices=["bf16", "fp32"])
     p.add_argument("--seed", default=42, type=int)
@@ -67,8 +69,9 @@ def base_parser(task: str) -> argparse.ArgumentParser:
     p.add_argument("--logging_dir", default="logging")
     p.add_argument("--results_dir", default="results")
     p.add_argument("--multihost", action="store_true",
-                   help="several processes (not ported: "
-                        + MULTI_PROCESS + ")")
+                   help="one rank per process, as torchrun starts them "
+                        "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, "
+                        "MASTER_PORT)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default) or 'cpu'")
     return p
@@ -76,23 +79,29 @@ def base_parser(task: str) -> argparse.ArgumentParser:
 
 def parse_args(parser: argparse.ArgumentParser,
                argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    """Parse; refuse a run on no CUDA device unless `--device cpu`, and
-    the multi-process flags."""
+    """Parse; refuse a run on no CUDA device unless `--device cpu`."""
     args = parser.parse_args(argv)
     if args.device != "cpu" and not torch.cuda.is_available():
         parser.error("no CUDA device: pass --device cpu to run on the CPU")
-    for flag in MULTI_PROCESS_FLAGS:
-        if getattr(args, flag, False):
-            raise NotImplementedError(
-                f"--{flag}: the port runs in one process; several processes "
-                f"are {MULTI_PROCESS}")
     return args
+
+
+def train_mode(args) -> str:
+    """The train step's mode under several ranks (parallel/zero.py)."""
+    if args.full_shard:
+        return "zero3"
+    if args.shard_grad_op:
+        return "zero2"
+    return "dp"
 
 
 def setup(args, task: str, keyed: bool = True
           ) -> Tuple[Dict[str, Any], PrismerConfig, Prismer, BPETokenizer]:
     """(task config, model config, model on args.device with weights drawn
-    from args.seed, tokenizer)."""
+    from args.seed, tokenizer); with `--multihost`, first the process
+    group."""
+    if args.multihost:
+        runtime.init(args.device)
     config = load_task_config(args.config,
                               args.target_dataset if keyed else None)
     if args.mixed_precision == "fp32":
@@ -168,41 +177,54 @@ def build_state(args, config: Dict[str, Any], cfg: PrismerConfig,
                              masters, seed=args.seed)
 
 
-def _world_size() -> int:
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+def train_mesh(args):
+    """The mesh of the data-parallel train step over every rank when a
+    process group is open (`--multihost`), else None (one process)."""
+    return make_mesh(device=args.device) if runtime.initialized() else None
 
 
-def _single_process(what: str) -> None:
-    n = _world_size()
-    if n > 1:
-        raise NotImplementedError(f"{what} across {n} processes is "
-                                  f"{MULTI_PROCESS}")
+def loader_shard() -> Dict[str, int]:
+    """create_loader's shard of this process (the whole data set with one
+    process)."""
+    return {"shard_id": runtime.rank(), "num_shards": runtime.world()}
+
+
+def epoch_steps(loader) -> int:
+    """Train steps an epoch: the fewest batches any process's shard gives,
+    so that every rank takes part in every step's collectives."""
+    return min(runtime.all_gather_object(len(loader)))
 
 
 def gather_for_metrics(values: np.ndarray) -> np.ndarray:
-    """Per-process metric arrays, gathered (one process: `values`)."""
-    _single_process("gather_for_metrics")
-    return values
+    """Per-process metric arrays, stacked in process order as JAX's
+    `process_allgather` stacks them (one process: `values`)."""
+    if runtime.world() == 1:
+        return values
+    return np.stack([np.asarray(v) for v in runtime.all_gather_object(
+        np.asarray(values))])
 
 
 def gather_results(results: List[Any]) -> List[Any]:
-    """Per-process JSON-able result lists, concatenated (one process:
-    `results`)."""
-    _single_process("gather_results")
-    return results
+    """Per-process JSON-able result lists, concatenated in process order
+    (one process: `results`)."""
+    if runtime.world() == 1:
+        return results
+    merged: List[Any] = []
+    for part in runtime.all_gather_object(results):
+        merged += part
+    return merged
 
 
 def broadcast_from_main(value: float) -> float:
-    """A scalar decision of process 0 (one process: `value`)."""
-    _single_process("broadcast_from_main")
-    return value
+    """Process 0's scalar decision, as float32 as JAX's
+    `broadcast_one_to_all` carries it (one process: `value`)."""
+    if runtime.world() == 1:
+        return value
+    return float(np.float32(runtime.broadcast_object(value)))
 
 
 def is_main_process() -> bool:
-    return not (dist.is_available() and dist.is_initialized()) \
-        or dist.get_rank() == 0
+    return runtime.is_main()
 
 
 def dump_results(results, results_dir: str, name: str) -> Optional[str]:

@@ -28,7 +28,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     config, cfg, model, tokenizer = common.setup(args, "caption")
 
     _, test_ds = create_dataset("caption", config)
-    loader = create_loader(test_ds, batch_size=1, num_workers=4, train=False)
+    loader = create_loader(test_ds, batch_size=1, num_workers=4, train=False,
+                           **common.loader_shard())
     if args.pretrained:
         common.load_pretrained(args.pretrained, cfg, model)
 

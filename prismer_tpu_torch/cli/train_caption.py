@@ -5,16 +5,21 @@ train_caption.py (reference: train_caption.py).
       --config prismer_tpu/configs/caption.yaml --target_dataset coco \\
       --exp_name exp [--evaluate] [--from_checkpoint] [--pretrained path] \\
       [--device cuda|cpu]
+  torchrun --nproc_per_node=N -m prismer_tpu_torch.cli.train_caption \\
+      --multihost [--shard_grad_op | --full_shard] ...
 
-One process, one device: the train step of train/step.py (AdamW over fp32
-masters, the fused CE and flash attention kernels on CUDA), beam search
-with the fused decode kernels for eval, best-CIDEr gating in process.
+The train step of train/step.py (AdamW over fp32 masters, the fused CE and
+flash attention kernels on CUDA), data parallel over the ranks with
+--multihost (each reads its shard of the data), beam search with the fused
+decode kernels for eval (each rank captions its shard, rank 0 scores the
+gathered results), best-CIDEr gating decided on rank 0.
 Writes caption_results_{exp}_{dataset}.json into --results_dir, the train
 state into {logging_dir}/caption_{exp}/state and metrics.jsonl beside it.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import time
@@ -27,6 +32,7 @@ from prismer_tpu_torch.cli import common
 from prismer_tpu_torch.data import create_dataset, create_loader
 from prismer_tpu_torch.evals.coco_eval import coco_caption_eval
 from prismer_tpu_torch.models import caption as caption_head
+from prismer_tpu_torch.parallel.zero import full_params
 from prismer_tpu_torch.train import build_train_step
 from prismer_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
@@ -87,11 +93,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     train_ds, test_ds = create_dataset("caption", config)
     train_loader = create_loader(train_ds, config["batch_size_train"],
-                                 num_workers=8, train=True)
+                                 num_workers=8, train=True,
+                                 **common.loader_shard())
     test_loader = create_loader(test_ds, config["batch_size_test"],
-                                num_workers=8, train=False)
+                                num_workers=8, train=False,
+                                **common.loader_shard())
 
-    steps_per_epoch = max(len(train_loader), 1)
+    steps = common.epoch_steps(train_loader)
+    steps_per_epoch = max(steps, 1)
     schedule = per_step_cosine(config["init_lr"], config["min_lr"],
                                steps_per_epoch, config["max_epoch"])
     state = common.build_state(args, config, cfg, model, schedule)
@@ -108,7 +117,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     prompt_len = caption_head.prefix_length(tokenizer,
                                             config.get("prefix", ""))
     pad_id = cfg.decoder.pad_token_id
-    step_fn = build_train_step(model)
+    # data parallel over every rank under --multihost; the state is placed
+    # on the mesh at the first step, after any restore above
+    step_fn = build_train_step(model, common.train_mesh(args),
+                               common.train_mode(args))
     metrics_log = MetricsLogger(ckpt_dir, enabled=common.is_main_process())
     results_name = (f"caption_results_{args.exp_name}_"
                     f"{args.target_dataset}.json")
@@ -118,15 +130,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if not args.evaluate:
         for epoch in range(start_epoch, config["max_epoch"]):
             losses = []
-            for batch in train_loader:
+            for batch in itertools.islice(train_loader, steps):
                 state, metrics = step_fn(state, prepare_train_batch(
                     batch, tokenizer, prompt_len, pad_id, args.device))
                 losses.append(metrics["loss"])
             train_loss = float(np.mean([float(l) for l in losses])) \
                 if losses else 0.0
 
-            all_results = common.gather_results(
-                evaluate(model, test_loader, tokenizer, config, args))
+            with full_params(state):
+                results = evaluate(model, test_loader, tokenizer, config,
+                                   args)
+            all_results = common.gather_results(results)
             cider = -1.0
             if common.is_main_process() and args.target_dataset == "coco":
                 common.dump_results(all_results, args.results_dir,
@@ -147,8 +161,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 save_checkpoint(os.path.join(ckpt_dir, "state"), state,
                                 {"epoch": epoch, "best_cider": best_cider})
 
-    all_results = common.gather_results(
-        evaluate(model, test_loader, tokenizer, config, args))
+    with full_params(state):
+        results = evaluate(model, test_loader, tokenizer, config, args)
+    all_results = common.gather_results(results)
     if common.is_main_process():
         common.dump_results(all_results, args.results_dir, results_name)
         if args.target_dataset == "coco":

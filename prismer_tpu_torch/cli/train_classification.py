@@ -13,6 +13,7 @@ improvement (train_classification.py:132-160).
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from typing import Optional, Sequence
@@ -24,6 +25,7 @@ from prismer_tpu_torch.cli import common
 from prismer_tpu_torch.cli.train_caption import prepare_train_batch
 from prismer_tpu_torch.data import create_dataset, create_loader
 from prismer_tpu_torch.models import caption as caption_head
+from prismer_tpu_torch.parallel.zero import full_params
 from prismer_tpu_torch.train import build_train_step
 from prismer_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
@@ -62,11 +64,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                                                  keyed=False)
     train_ds, test_ds = create_dataset("classification", config)
     train_loader = create_loader(train_ds, config["batch_size_train"],
-                                 num_workers=8, train=True)
+                                 num_workers=8, train=True,
+                                 **common.loader_shard())
     test_loader = create_loader(test_ds, config["batch_size_test"],
-                                num_workers=8, train=False)
+                                num_workers=8, train=False,
+                                **common.loader_shard())
 
-    steps_per_epoch = max(len(train_loader), 1)
+    steps = common.epoch_steps(train_loader)
+    steps_per_epoch = max(steps, 1)
     schedule = per_step_cosine(config["init_lr"], config["min_lr"],
                                steps_per_epoch, config["max_epoch"])
     state = common.build_state(args, config, cfg, model, schedule)
@@ -83,17 +88,22 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     prompt_len = caption_head.prefix_length(tokenizer,
                                             config.get("prefix", ""))
     pad_id = cfg.decoder.pad_token_id
-    step_fn = build_train_step(model)
+    # data parallel over every rank under --multihost; the state is placed
+    # on the mesh at the first step, after any restore above
+    step_fn = build_train_step(model, common.train_mesh(args),
+                               common.train_mode(args))
 
     t0 = time.time()
     if not args.evaluate:
         for epoch in range(start_epoch, config["max_epoch"]):
             losses = []
-            for batch in train_loader:
+            for batch in itertools.islice(train_loader, steps):
                 state, metrics = step_fn(state, prepare_train_batch(
                     batch, tokenizer, prompt_len, pad_id, args.device))
                 losses.append(float(metrics["loss"]))
-            acc = eval_accuracy(model, test_loader, tokenizer, config, args)
+            with full_params(state):
+                acc = eval_accuracy(model, test_loader, tokenizer, config,
+                                    args)
             print(f"Epoch {epoch:03d} | loss "
                   f"{np.mean(losses) if losses else 0:.4f} | acc {acc:.4f} "
                   f"| {time.time() - t0:.0f}s")

@@ -13,6 +13,7 @@ mask the pads only (no prompt). The state is saved every epoch.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from typing import Any, Dict, Optional, Sequence
@@ -41,9 +42,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                                                  keyed=False)
     dataset = create_dataset("pretrain", config)
     loader = create_loader(dataset, config["batch_size_train"],
-                           num_workers=8, train=True)
+                           num_workers=8, train=True,
+                           **common.loader_shard())
 
-    steps_per_epoch = max(len(loader), 1)
+    steps = common.epoch_steps(loader)
+    steps_per_epoch = max(steps, 1)
     schedule = pretrain_schedule(
         config["init_lr"], config["min_lr"], config["warmup_lr"],
         config["warmup_steps"], steps_per_epoch, config["max_epoch"])
@@ -56,12 +59,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         start_epoch = int(meta.get("epoch", -1)) + 1
 
     pad_id = cfg.decoder.pad_token_id
-    step_fn = build_train_step(model)
+    # data parallel over every rank under --multihost; the state is placed
+    # on the mesh at the first step, after any restore above
+    step_fn = build_train_step(model, common.train_mesh(args),
+                               common.train_mode(args))
 
     t0 = time.time()
     for epoch in range(start_epoch, config["max_epoch"]):
         losses = []
-        for batch in loader:
+        for batch in itertools.islice(loader, steps):
             state, metrics = step_fn(state, prepare_train_batch(
                 batch, tokenizer, pad_id, args.device))
             losses.append(float(metrics["loss"]))

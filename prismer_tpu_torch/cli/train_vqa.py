@@ -14,6 +14,7 @@ vqa_results_{exp}.json in the EvalAI submission format (train_vqa.py:
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from typing import Any, Dict, Optional, Sequence
@@ -25,6 +26,7 @@ from prismer_tpu_torch.cli import common
 from prismer_tpu_torch.data import create_dataset, create_loader
 from prismer_tpu_torch.models import caption as caption_head
 from prismer_tpu_torch.models import vqa as vqa_head
+from prismer_tpu_torch.parallel.zero import full_params
 from prismer_tpu_torch.train import build_train_step
 from prismer_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
@@ -82,11 +84,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     train_ds, test_ds = create_dataset("vqa", config)
     train_loader = create_loader(train_ds, config["batch_size_train"],
-                                 num_workers=8, train=True)
+                                 num_workers=8, train=True,
+                                 **common.loader_shard())
     test_loader = create_loader(test_ds, config["batch_size_test"],
-                                num_workers=8, train=False)
+                                num_workers=8, train=False,
+                                **common.loader_shard())
 
-    steps_per_epoch = max(len(train_loader), 1)
+    steps = common.epoch_steps(train_loader)
+    steps_per_epoch = max(steps, 1)
     schedule = per_step_cosine(config["init_lr"], config["min_lr"],
                                steps_per_epoch, config["max_epoch"])
     state = common.build_state(args, config, cfg, model, schedule)
@@ -97,13 +102,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                                          state)
         start_epoch = int(meta.get("epoch", -1)) + 1
 
-    step_fn = build_train_step(model)
+    # data parallel over every rank under --multihost; the state is placed
+    # on the mesh at the first step, after any restore above
+    step_fn = build_train_step(model, common.train_mesh(args),
+                               common.train_mode(args))
 
     if not args.evaluate:
         t0 = time.time()
         for epoch in range(start_epoch, config["max_epoch"]):
             losses = []
-            for batch in train_loader:
+            for batch in itertools.islice(train_loader, steps):
                 state, metrics = step_fn(state, prepare_train_batch(
                     batch, tokenizer, args.device))
                 losses.append(float(metrics["loss"]))
@@ -114,8 +122,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             save_checkpoint(os.path.join(ckpt_dir, "state"), state,
                             {"epoch": epoch})
 
-    all_results = common.gather_results(
-        evaluate(model, test_loader, tokenizer, config, args))
+    with full_params(state):
+        results = evaluate(model, test_loader, tokenizer, config, args)
+    all_results = common.gather_results(results)
     if common.is_main_process():
         path = common.dump_results(all_results, args.results_dir,
                                    f"vqa_results_{args.exp_name}.json")

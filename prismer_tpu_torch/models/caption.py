@@ -5,7 +5,8 @@ masked to -100, mean of per-sample summed label-smoothed CE), generation
 list (candidates ' <ans></s>', lowercased).
 
 The serving entry points `build_generate_fn` and `build_rank_fn` take a raw
-expert batch and run on the device of their inputs; the string-level
+expert batch and run on the device of their inputs
+(`build_sharded_generate_fn`: over the ranks of a mesh); the string-level
 helpers (`generate_captions`, `rank_captions`) tokenize on the host around
 a function they built.
 """
@@ -102,6 +103,47 @@ def build_generate_fn(model: Prismer, *, num_beams: int = GEN_NUM_BEAMS,
             length_penalty=length_penalty, eos_token_id=dec.eos_token_id,
             pad_token_id=dec.pad_token_id, serving=serving)
         return seqs
+
+    return fn
+
+
+def build_sharded_generate_fn(model: Prismer, mesh, *,
+                              num_beams: int = GEN_NUM_BEAMS,
+                              max_length: int = GEN_MAX_LENGTH,
+                              min_length: int = GEN_MIN_LENGTH,
+                              length_penalty: float = 1.0):
+    """Data-parallel serving over the ranks of `mesh` (parallel/mesh.py).
+
+    fn(experts_raw, prompt_ids, prompt_mask, instance_slots=None) takes
+    the global batch on every rank and returns its (B, max_length) ids on
+    every rank. Each rank runs `build_generate_fn`'s pipeline on its rows
+    (`batch_rows` over 'data'; the batch must divide that axis), with the
+    fused decode kernels on CUDA as one process runs them, and the rows'
+    ids are put back together in rank order. The model is replicated (JAX
+    replicates the variables, P()); the instance slots are the ones one
+    process uses, never the rank's own. No collective runs inside the
+    loop: a sample's beams attend only that sample's encoder states."""
+    import torch.distributed as dist
+
+    from prismer_tpu_torch.parallel.mesh import batch_rows, shard_batch
+    local = build_generate_fn(model, num_beams=num_beams,
+                              max_length=max_length, min_length=min_length,
+                              length_penalty=length_penalty)
+    group = mesh.get_group("data")
+
+    @torch.no_grad()
+    def fn(experts_raw: Dict[str, Any], prompt_ids: torch.Tensor,
+           prompt_mask: torch.Tensor,
+           instance_slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+        rows = batch_rows(prompt_ids.shape[0], mesh)
+        seqs = local(shard_batch(experts_raw, mesh), prompt_ids[rows],
+                     prompt_mask[rows], instance_slots)
+        # an all-gather in rank order, as the sum of each rank's rows put
+        # in place: gloo takes CUDA tensors for all_reduce, not all_gather
+        out = seqs.new_zeros((prompt_ids.shape[0], seqs.shape[1]))
+        out[rows] = seqs
+        dist.all_reduce(out, group=group)
+        return out
 
     return fn
 

@@ -21,9 +21,11 @@ packed-qkv projection is off by default in JAX and is not ported.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import math
-from typing import Callable, Optional
+from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -59,6 +61,37 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """This rank's rows [offset, offset + rows) of a global batch of
+    `total` rows split over the process group `group` (data parallelism)."""
+    group: Any
+    offset: int
+    rows: int
+    total: int
+
+
+_BATCH_SHARD: Optional[BatchShard] = None
+
+
+@contextlib.contextmanager
+def batch_shard(shard: Optional[BatchShard]) -> Iterator[None]:
+    """Run the block (a data-parallel train step's forward and backward,
+    train/step.py) on `shard`: BatchNorm (vit.py) all-reduces its batch
+    statistics over the shard's group and Dropout draws the global
+    batch's masks."""
+    global _BATCH_SHARD
+    prev, _BATCH_SHARD = _BATCH_SHARD, shard
+    try:
+        yield
+    finally:
+        _BATCH_SHARD = prev
+
+
+def current_batch_shard() -> Optional[BatchShard]:
+    return _BATCH_SHARD
+
+
 class Dropout:
     """flax `nn.Dropout` in train mode: keep each element with probability
     1 - rate and scale what is kept by 1 / (1 - rate), in the input's dtype;
@@ -68,7 +101,12 @@ class Dropout:
     device. A rematerialised layer gets its seed as an argument and builds
     its Dropout inside the checkpointed call, so the recomputation draws the
     same masks: torch.utils.checkpoint restores only the default generators'
-    states, never an explicit generator's."""
+    states, never an explicit generator's.
+
+    Under data parallelism (`batch_shard`) the leading dim
+    of x is this rank's rows of the global batch: the mask is drawn at the
+    global batch's shape and this rank keeps its rows, so every rank draws
+    what one process draws."""
 
     def __init__(self, rate: float, seed: Optional[int],
                  device: torch.device):
@@ -81,8 +119,17 @@ class Dropout:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if self.gen is None:
             return x
-        keep = torch.rand(x.shape, generator=self.gen,
-                          device=x.device) < self.keep
+        shard = current_batch_shard()
+        if shard is None:
+            keep = torch.rand(x.shape, generator=self.gen, device=x.device)
+        else:
+            if x.shape[0] != shard.rows:
+                raise ValueError(f"dropout over {x.shape[0]} rows, the batch "
+                                 f"shard has {shard.rows}")
+            keep = torch.rand((shard.total,) + tuple(x.shape[1:]),
+                              generator=self.gen, device=x.device)
+            keep = keep[shard.offset:shard.offset + shard.rows]
+        keep = keep < self.keep
         return torch.where(keep, x / self.keep, torch.zeros_like(x))
 
 
@@ -114,6 +161,14 @@ class LayerNorm(nn.Module):
         return fp32_layer_norm(x, self.weight, self.bias, self.eps)
 
 
+def _at_use(w: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    """A weight in the compute dtype. Only fp32 weights standing in for the
+    compute-dtype ones (parallel/zero.py "zero3") are cast, at use, as
+    flax casts its fp32 params; the dtype test spares every other call a
+    dispatch."""
+    return w if w is None or w.dtype == dtype else w.to(dtype)
+
+
 class Dense(nn.Linear):
     """nn.Linear in the compute dtype that casts its input to that dtype."""
 
@@ -121,9 +176,12 @@ class Dense(nn.Linear):
                  device=None, bias: bool = True):
         super().__init__(in_features, out_features, bias=bias, device=device,
                          dtype=dtype)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        cd = self.compute_dtype
+        return F.linear(x.to(cd), _at_use(self.weight, cd),
+                        _at_use(self.bias, cd))
 
 
 class Conv(nn.Conv2d):
@@ -135,9 +193,13 @@ class Conv(nn.Conv2d):
         super().__init__(in_ch, out_ch, kernel, stride=stride,
                          padding=padding, bias=bias, device=device,
                          dtype=dtype)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = super().forward(x.to(self.weight.dtype).permute(0, 3, 1, 2))
+        cd = self.compute_dtype
+        y = self._conv_forward(x.to(cd).permute(0, 3, 1, 2),
+                               _at_use(self.weight, cd),
+                               _at_use(self.bias, cd))
         return y.permute(0, 2, 3, 1)
 
 

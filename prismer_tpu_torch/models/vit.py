@@ -17,12 +17,14 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed.nn.functional as dist_nn
 import torch.nn as nn
 import torch.nn.functional as F
 
 from prismer_tpu_torch.config import VisionEncoderConfig
 from prismer_tpu_torch.models.layers import (Adaptor, Conv, LayerNorm, Mlp,
                                              MultiHeadAttention,
+                                             current_batch_shard,
                                              interpolate_pos_embed, remat)
 from prismer_tpu_torch.models.resampler import PerceiverResampler
 from prismer_tpu_torch.ops.resize import (bilinear_resize_align_corners,
@@ -49,7 +51,13 @@ class BatchNorm(nn.Module):
     (B, H, W), with flax's variance max(0, E[x^2] - E[x]^2) (biased), and the
     running statistics become 0.9 * old + 0.1 * batch in place.
     `nn.BatchNorm2d` is not used: its momentum weighs the other way and it
-    keeps an unbiased running variance."""
+    keeps an unbiased running variance.
+
+    Under data parallelism (`layers.batch_shard`) the sums of x and x^2 are
+    all-reduced over the ranks of the batch before the mean and variance
+    are formed, through an all-reduce the gradient flows back through: the
+    statistics of the global batch, as JAX's BatchNorm computes them on a
+    batch-sharded array."""
 
     def __init__(self, dim: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -64,8 +72,15 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if train:
             axes = tuple(range(x.ndim - 1))
-            mean = x32.mean(axes)
-            var = ((x32 * x32).mean(axes) - mean * mean).clamp_min(0.0)
+            shard = current_batch_shard()
+            if shard is not None:
+                sums = torch.stack([x32.sum(axes), (x32 * x32).sum(axes)])
+                sums = dist_nn.all_reduce(sums, group=shard.group)
+                count = x32[..., 0].numel() * shard.total // shard.rows
+                mean, mean_sq = sums[0] / count, sums[1] / count
+            else:
+                mean, mean_sq = x32.mean(axes), (x32 * x32).mean(axes)
+            var = (mean_sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)

@@ -19,19 +19,24 @@ import numpy as np
 import torch
 
 from prismer_tpu_torch.convert.from_jax import to_jax_variables
+from prismer_tpu_torch.parallel import runtime
+from prismer_tpu_torch.parallel.zero import full_state
 from prismer_tpu_torch.train.state import TrainState
 
 
 def save_checkpoint(path: str, state: TrainState,
                     metadata: Optional[Dict[str, Any]] = None) -> None:
+    """Under a mesh (parallel/zero.py) every rank calls this: the sharded
+    masters, moments and parameters are gathered into the single-process
+    layout, and rank 0 writes the same file one process writes."""
     payload = {
         "step": state.step,
-        "model": state.model.state_dict(),
-        "masters": state.masters,
-        "optimizer": state.optimizer.state_dict(),
+        **full_state(state),
         "generator": state.generator.get_state(),
         "metadata": dict(metadata or {}),
     }
+    if runtime.rank() != 0:
+        return
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -40,7 +45,12 @@ def save_checkpoint(path: str, state: TrainState,
 def restore_checkpoint(path: str, state: TrainState
                        ) -> Tuple[TrainState, Dict[str, Any]]:
     """Restore into `state` (same model configuration and freeze mode);
-    returns (state, metadata)."""
+    returns (state, metadata). The state is a single-process one: restore
+    before placing it on a mesh (the train step places it at its first
+    call), whatever mode wrote the file."""
+    if state.parallel is not None:
+        raise ValueError("restore into the single-process state, before "
+                         "parallel.zero.shard_state")
     payload = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(payload["model"])
     if set(payload["masters"]) != set(state.masters):

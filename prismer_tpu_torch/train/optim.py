@@ -63,12 +63,15 @@ def apply_freeze(model: nn.Module, mode: str) -> Dict[str, str]:
 
 
 def make_optimizer(leaves: Sequence[torch.Tensor], weight_decay: float,
-                   lr: float) -> torch.optim.AdamW:
+                   lr: float, foreach: Optional[bool] = None
+                   ) -> torch.optim.AdamW:
     """AdamW (torch defaults b1 0.9, b2 0.999, eps 1e-8; decoupled decay on
     every trainable leaf, as the reference does not exempt LN or biases)
-    over fp32 leaves. The step sets the lr from the schedule each step."""
+    over fp32 leaves. The step sets the lr from the schedule each step.
+    `foreach` False: one leaf at a time (leaves that mix DTensors and plain
+    tensors, which the multi-tensor kernels refuse)."""
     return torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay)
+                             weight_decay=weight_decay, foreach=foreach)
 
 
 def count_params(model: nn.Module, labels: Optional[Dict[str, str]] = None

@@ -17,7 +17,7 @@ never sees them), so `params_fp32` exports every leaf at full precision.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -37,6 +37,7 @@ class TrainState:
     generator: torch.Generator          # instance slots and dropout seeds
     frozen_fp32: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict)           # host fp32 values of frozen ones
+    parallel: Optional[Any] = None      # parallel/zero.py placement
 
     @classmethod
     def create(cls, model: nn.Module, schedule: Schedule,
@@ -73,10 +74,12 @@ class TrainState:
         return state
 
     def trainable(self) -> Iterator[Tuple[str, torch.Tensor]]:
-        """(name, fp32 leaf the optimizer updates), in parameter order."""
+        """(name, fp32 leaf the optimizer updates), in parameter order: a
+        ZeRO-2 shard of the master, else the master, else the parameter."""
+        shards = self.parallel.shards if self.parallel is not None else {}
         for name, p in self.model.named_parameters():
             if self.labels[name] == TRAIN:
-                yield name, self.masters.get(name, p)
+                yield name, shards.get(name, self.masters.get(name, p))
 
     def params_fp32(self) -> Dict[str, torch.Tensor]:
         """Every parameter at full precision: masters, or the frozen

@@ -443,14 +443,35 @@ def test_demo_main_writes_captions_beside_images(tree, capsys):
             assert f.read() == cap
 
 
+class _Stop(Exception):
+    pass
+
+
 @pytest.mark.parametrize("module", [train_caption, train_vqa,
                                     train_classification, train_pretrain,
                                     demo])
-@pytest.mark.parametrize("flag", ["--multihost", "--shard_grad_op",
-                                  "--full_shard"])
-def test_multi_process_flags_raise(tree, module, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 9"):
+@pytest.mark.parametrize("flag,mode", [("--multihost", "dp"),
+                                       ("--shard_grad_op", "zero2"),
+                                       ("--full_shard", "zero3")])
+def test_multi_process_flags_select_their_mode(tree, module, flag, mode,
+                                               monkeypatch):
+    """Each flag parses in every driver and selects its train step's mode;
+    --multihost opens the process group (runtime.init) before anything
+    else of the run, on the run's --device."""
+    seen, inits = [], []
+    real_setup = common.setup
+
+    def setup(args, *a, **kw):
+        seen.append((common.train_mode(args), args.multihost))
+        real_setup(args, *a, **kw)
+        raise _Stop
+
+    monkeypatch.setattr(common, "setup", setup)
+    monkeypatch.setattr(common.runtime, "init", inits.append)
+    with pytest.raises(_Stop):
         run(module, tree, "caption", flag)
+    assert seen == [(mode, flag == "--multihost")]
+    assert inits == (["cpu"] if flag == "--multihost" else [])
 
 
 @pytest.mark.parametrize("module", [train_caption, train_vqa,
@@ -465,23 +486,6 @@ def test_drivers_refuse_to_start_without_cuda(module, capsys):
     with pytest.raises(SystemExit) as e:
         module.main(["--help"])
     assert e.value.code == 0 and "--device" in capsys.readouterr().out
-
-
-def test_collectives_single_process_and_refused_across_processes(
-        tmp_path, monkeypatch):
-    assert common.gather_results([1, 2]) == [1, 2]
-    values = np.arange(3)
-    assert common.gather_for_metrics(values) is values
-    assert common.broadcast_from_main(0.5) == 0.5
-    assert common.is_main_process()
-    assert common.dump_results([{"a": 1}], str(tmp_path), "r.json") == str(
-        tmp_path / "r.json")
-    monkeypatch.setattr(common, "_world_size", lambda: 2)
-    for fn, arg in ((common.gather_results, []),
-                    (common.gather_for_metrics, values),
-                    (common.broadcast_from_main, 1.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 9"):
-            fn(arg)
 
 
 # ---------------------------------------------------------------------------

@@ -29,15 +29,16 @@ from prismer_tpu_torch.ops import flash_attention as port_fa
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "flax", "optax", "orbax", "yaml", "regex", "PIL", "cv2")
+BLOCKED = ("jax", "flax", "optax", "orbax", "yaml", "regex", "PIL", "cv2",
+           "sklearn")
 
 
 def test_package_imports_without_jax_flax_yaml_regex_pil():
     """Every module (train/, ops/fused_ce, ops/layer_norm, ops/ln_proj, the
     segmentation expert's experts/, convert/experts, data/png,
-    data/pil_warp, the cli/ drivers, train/profiling and the label experts
-    among them) imports with jax, flax, optax, orbax, yaml, regex, PIL and
-    cv2 unimportable."""
+    data/pil_warp, the cli/ drivers, train/profiling, the label experts,
+    parallel/ and convert/feature_tables among them) imports with jax,
+    flax, optax, orbax, yaml, regex, PIL, cv2 and sklearn unimportable."""
     code = "\n".join([
         "import sys, importlib, pkgutil",
         f"for m in {BLOCKED!r}:",
@@ -49,7 +50,7 @@ def test_package_imports_without_jax_flax_yaml_regex_pil():
         "    importlib.import_module(name)",
         "bad = [m for m in sys.modules if m.split('.')[0] == 'prismer_tpu']",
         "assert not bad, bad",
-        "assert len(names) >= 72, names",
+        "assert len(names) >= 79, names",
         "assert {'prismer_tpu_torch.ops.fused_decode',",
         "        'prismer_tpu_torch.ops.lm_topk',",
         "        'prismer_tpu_torch.ops.fused_ce',",
@@ -91,7 +92,14 @@ def test_package_imports_without_jax_flax_yaml_regex_pil():
         "        'prismer_tpu_torch.cli.train_pretrain',",
         "        'prismer_tpu_torch.cli.demo',",
         "        'prismer_tpu_torch.cli.demo_vis',",
-        "        'prismer_tpu_torch.train.profiling'} <= set(names), names",
+        "        'prismer_tpu_torch.train.profiling',",
+        "        'prismer_tpu_torch.parallel',",
+        "        'prismer_tpu_torch.parallel.mesh',",
+        "        'prismer_tpu_torch.parallel.runtime',",
+        "        'prismer_tpu_torch.parallel.zero',",
+        "        'prismer_tpu_torch.parallel.tp',",
+        "        'prismer_tpu_torch.parallel.dryrun',",
+        "        'prismer_tpu_torch.convert.feature_tables'} <= set(names), names",
         "print(len(names))",
     ])
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -229,6 +237,22 @@ def test_package_never_calls_sdpa():
             if p.suffix in (".py", ".cu", ".cuh")
             and "scaled_dot_product_attention" in p.read_text()]
     assert not hits, hits
+
+
+def test_smoke_script_imports_no_jax_and_no_jax_package():
+    """chip_smoke.py (the card's run, whose machine has none of them)
+    imports nothing blocked above and nothing of prismer_tpu, at any
+    depth of the script."""
+    import ast
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "prismer_tpu_torch" in roots and "torch" in roots
+    assert not roots & (set(BLOCKED) | {"prismer_tpu"}), roots
 
 
 def test_smoke_run_turns_tf32_off():

@@ -148,7 +148,13 @@ def test_random_text_matches_jax(text):
     got = port_tok.synthetic_tokenizer()
     assert port_tok._SPLIT_PATTERN.findall(text) == \
         jax_tok._SPLIT_PATTERN.findall(text)
-    ids = want.encode(text)
+    try:
+        ids = want.encode(text)
+    except UnicodeEncodeError:
+        # a lone surrogate has no UTF-8 bytes: both tokenizers refuse it
+        with pytest.raises(UnicodeEncodeError):
+            got.encode(text)
+        return
     assert got.encode(text) == ids
     assert got.decode(ids) == want.decode(ids)
 

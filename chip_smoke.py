@@ -71,8 +71,16 @@ generator's depth, normal, edge, obj_detection, ocr_detection and
 seg_coco tasks over 16 images, every label file where `data.labels` reads
 it, images/s, device and host time, peak memory) and "experts demo"
 (`cli.demo` at BASE captioning those images from those labels, kernels
-1-5 launched). Exits non-zero if any phase fails or if there is no CUDA
-device; the last line of standard output is a JSON object with the
+1-5 launched). Then "multi-gpu" (the parallel/ package at NCCL world
+size 1 and over two gloo ranks on the card), "devices" (with two or more
+cards: captioning and a train step on cuda:1 from a process whose current
+device is 0 equal cuda:0's, requests alternating between the cards; on
+one card it logs that it did not run), "threads" (two threads on streams
+of their own serve, then train, at once: ids and losses equal a serial
+run), "png" (every fixture of tests/data/png decodes to the sha256 Pillow
+gave) and "label cache" (PRISMER_LABEL_CACHE: records/s off, cold and
+warm, batches bit-equal, train steps fed warm). Exits non-zero if any
+phase fails or if there is no CUDA device; the last line of standard output is a JSON object with the
 device.
 
 The slice: Prismer-BASE, all six experts, 480 px, bf16; serving with beam
@@ -3545,48 +3553,21 @@ def phase_train_from_files(results, card: str):
     one read) measured the same way, beside phase "train"'s batch-16
     figure. Every training kernel must launch in the file-fed steps."""
     import torch
-    from prismer_tpu_torch.data import create_loader
-    from prismer_tpu_torch.models.caption import prefix_length
-    from prismer_tpu_torch.tokenizer import synthetic_tokenizer
     from prismer_tpu_torch.train import build_train_step
 
     cfg = slice_config("bfloat16")
     state = train_state(cfg, "cuda", TRAIN_LR)
     step = build_train_step(state.model)
-    tok = synthetic_tokenizer()
-    prompt_len = prefix_length(tok, FILES_PREFIX)
-    pad = cfg.decoder.pad_token_id
-    loader = create_loader(_FILES["train_ds"], FILES_BATCH,
-                           num_workers=_FILES["workers"], train=True)
+    run = file_fed_steps(cfg, state, step)
+    counts, file_losses = run["counts"], run["losses"]
+    wall, busy = run["wall"], run["busy"]
+    fixed = run["last"]
 
-    def epochs():   # 64 records make 4 batches: step 5 opens epoch 2
-        while True:
-            yield from loader
-
-    batches = epochs()
-    losses = []
-    last = {}
-
-    def steps(n, fixed=None):
-        nonlocal state
+    def steps(n):
         for _ in range(n):
-            b = fixed or file_batch(next(batches), tok, prompt_len, pad)
-            last["batch"] = b
-            state, metrics = step(state, b)
-            losses.append(metrics["loss"])
+            step(state, fixed)
 
-    wrap = wrappers()
-    for fn in wrap.values():
-        fn.launches = 0
-    try:
-        steps(1)
-        wall, busy = busy_window(lambda: steps(FILES_STEPS - 1))
-    finally:
-        batches.close()
-    counts = {n: wrap[n].launches for n in TRAIN_KERNELS}
-    file_losses = [float(x) for x in losses]
-    fixed = last["batch"]
-    fwall, fbusy = busy_window(lambda: steps(FILES_STEPS - 1, fixed))
+    fwall, fbusy = busy_window(lambda: steps(FILES_STEPS - 1))
     n = FILES_STEPS - 1
     log(f"  bf16 BASE batch {FILES_BATCH} fed from files: losses "
         + " ".join(f"{x:.4f}" for x in file_losses)
@@ -3604,8 +3585,50 @@ def phase_train_from_files(results, card: str):
            f"train-from-files launches {counts}")
     state.model.eval()
     _FILES["model"] = state.model
-    del state, last, fixed
+    del state, run, fixed
     torch.cuda.empty_cache()
+
+
+def file_fed_steps(cfg, state, step) -> dict:
+    """FILES_STEPS train steps fed by the loader over the "data" tree at
+    batch 16 (min(8, cores) forked workers; the fifth batch opens the
+    second epoch), the first a warm-up, the others under torch.profiler:
+    {"losses", "wall", "busy" (ms), "counts" (launches of TRAIN_KERNELS),
+    "last" (the last batch on the card)}."""
+    from prismer_tpu_torch.data import create_loader
+    from prismer_tpu_torch.models.caption import prefix_length
+    from prismer_tpu_torch.tokenizer import synthetic_tokenizer
+
+    tok = synthetic_tokenizer()
+    prompt_len = prefix_length(tok, FILES_PREFIX)
+    pad = cfg.decoder.pad_token_id
+    loader = create_loader(_FILES["train_ds"], FILES_BATCH,
+                           num_workers=_FILES["workers"], train=True)
+
+    def epochs():   # 64 records make 4 batches: step 5 opens epoch 2
+        while True:
+            yield from loader
+
+    batches = epochs()
+    losses, last = [], {}
+
+    def steps(n):
+        for _ in range(n):
+            last["batch"] = file_batch(next(batches), tok, prompt_len, pad)
+            _, metrics = step(state, last["batch"])
+            losses.append(metrics["loss"])
+
+    wrap = wrappers()
+    for fn in wrap.values():
+        fn.launches = 0
+    try:
+        steps(1)
+        wall, busy = busy_window(lambda: steps(FILES_STEPS - 1))
+    finally:
+        batches.close()
+    return {"losses": [float(x) for x in losses], "wall": wall,
+            "busy": busy, "last": last["batch"],
+            "counts": {n: wrap[n].launches for n in TRAIN_KERNELS}}
 
 
 def phase_eval_from_files(results, card: str):
@@ -4520,10 +4543,10 @@ CLIP_WORDS = ("stop", "the cat", "exit", "dog and the cat", "open", "on",
               "car park", "the end")
 EXPERT_IMAGES = 16      # synthetic PNGs and the 640 x 480 JPEG fixtures
 EXPERT_BATCH = 16
-# object detection runs on shard 0 of 8 of the 16 images (2): with random
+# object detection runs on shard 0 of 16 of the 16 images (1): with random
 # weights UniDet keeps up to 300 boxes, and the host's class-wise NMS and
 # occlusion ordering take about a minute an image
-OBJDET_SHARDS = 8
+OBJDET_SHARDS = 16
 # OCR: the seeded CharNet's heads are set from its own outputs
 # (`sparse_ocr`) so that about this share of the cells pass the word
 # threshold, and half of those the char threshold, with boxes that overlap
@@ -4741,7 +4764,7 @@ def ocr_stages(model, x) -> None:
 def phase_experts_generate(results, card: str):
     """`experts.generate.main` on the card over 16 images in one folder,
     synthetic PNGs and the 640 x 480 JPEG fixtures: depth, normal, edge at batch 16,
-    obj_detection on 2 of them (reading the depth labels just written),
+    obj_detection on 1 of them (reading the depth labels just written),
     ocr_detection with CLIP text weights and a vocabulary in a temporary
     PRISMER_EXPERT_WEIGHTS, then seg_coco. Every label file must be where
     `data.labels` reads it (OCR: only for images with words); per task the
@@ -5173,10 +5196,12 @@ def phase_multi_gpu(results, card: str):
         f"above; part 2 took {time.perf_counter() - t0:.1f} s")
 
 
-def _to_cuda(x):
+def _to_cuda(x, device="cuda"):
     if isinstance(x, dict):
-        return {k: _to_cuda(v) for k, v in x.items()}
-    return x.cuda()
+        return {k: _to_cuda(v, device) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_cuda(v, device) for v in x)
+    return x.to(device)
 
 
 def _multi_gpu_rank():
@@ -5240,6 +5265,350 @@ def _multi_gpu_rank():
     if runtime.rank() == 0:
         out.update(records)
     return out
+
+
+# ---------------------------------------------------------------------------
+# devices and threads: every kernel on any card of the process and from any
+# thread (ops/_build.py `launch_device`, per-device grants and locked
+# tensor-map caches in csrc/); the PNG kinds and the decoded-label cache
+# ---------------------------------------------------------------------------
+
+THREAD_REQUESTS = 5      # requests each serving thread makes
+THREAD_STEPS = 3         # train steps each training thread takes
+
+
+def _serve_ids(generate, req):
+    """The ids of one request, on the CPU, after its stream has finished."""
+    import torch
+    ids = generate(*req)
+    torch.cuda.current_stream(ids.device).synchronize()
+    return ids.cpu()
+
+
+def _launch_counts(names) -> dict:
+    wrap = wrappers()
+    return {n: wrap[n].launches for n in names}
+
+
+def _zero_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def phase_devices(results, card: str):
+    """With two or more cards: BASE bf16 captioning at batch 8 on cuda:1
+    from a process whose current device is 0 gives the ids of cuda:0;
+    requests alternating between the cards from one process give the same
+    ids; one bf16 train step at batch 4 on cuda:1 gives cuda:0's loss bit
+    for bit (no kernel uses float atomics); kernels 1-5 and 6-9 launch on
+    each card; the current device is 0 afterwards. On one card it logs
+    that it did not run."""
+    import torch
+    from prismer_tpu_torch.models.caption import build_generate_fn
+    from prismer_tpu_torch.models.prismer import build_random_prismer
+    from prismer_tpu_torch.train import build_train_step
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"  devices: not run ({n} card)")
+        return
+    torch.cuda.set_device(0)
+    cfg, model0, requests = serve_setup()
+    model1 = build_random_prismer(cfg, SEED, "cuda:1")
+    gen0, gen1 = build_generate_fn(model0), build_generate_fn(model1)
+    reqs0 = requests[:3]
+    reqs1 = [_to_cuda(r, "cuda:1") for r in reqs0]
+    per_card = {}
+    _zero_counts()
+    want = [_serve_ids(gen0, r) for r in reqs0]
+    per_card["serve cuda:0"] = _launch_counts(SERVE_KERNELS)
+    _zero_counts()
+    got1 = [_serve_ids(gen1, r) for r in reqs1]
+    per_card["serve cuda:1"] = _launch_counts(SERVE_KERNELS)
+    expect(torch.cuda.current_device() == 0, "serving on cuda:1 changed the "
+           "current device")
+    for i, (g, w) in enumerate(zip(got1, want)):
+        expect(torch.equal(g, w), f"request {i}: cuda:1 ids differ from "
+               "cuda:0's")
+    alternating = []
+    for i in range(2 * len(reqs0)):
+        gen, reqs = (gen0, reqs0) if i % 2 == 0 else (gen1, reqs1)
+        alternating.append(torch.equal(_serve_ids(gen, reqs[i // 2]),
+                                       want[i // 2]))
+    expect(all(alternating), f"alternating requests: equal {alternating}")
+    log(f"  BASE bf16 batch 8 on cuda:1 from current device 0: ids of "
+        f"{len(reqs0)} requests equal cuda:0's; {len(alternating)} requests "
+        f"alternating cuda:0 / cuda:1 equal; sample ids {got1[0][0].tolist()}")
+    del gen1, model1
+    torch.cuda.empty_cache()
+
+    batch0 = caption_batch(cfg, 4, torch.Generator(device="cuda")
+                           .manual_seed(SEED + 31), "cuda")
+    losses = {}
+    for dev in ("cuda:0", "cuda:1"):
+        state = train_state(cfg, dev, TRAIN_LR)
+        step = build_train_step(state.model)
+        _zero_counts()
+        _, metrics = step(state, _to_cuda(batch0, dev))
+        losses[dev] = float(metrics["loss"])
+        per_card[f"train {dev}"] = _launch_counts(TRAIN_KERNELS)
+        del state, step
+        torch.cuda.empty_cache()
+    log(f"  one bf16 train step at batch 4: loss cuda:0 "
+        f"{losses['cuda:0']!r}, cuda:1 {losses['cuda:1']!r}")
+    expect(losses["cuda:0"] == losses["cuda:1"], "train loss differs "
+           "between the cards")
+    for path, counts in per_card.items():
+        log(f"  launches, {path}: " + ", ".join(
+            f"{k}={v}" for k, v in counts.items()))
+        expect(all(counts.values()), f"{path}: a kernel did not launch")
+    expect(torch.cuda.current_device() == 0, "the current device moved")
+    log(f"  current device after the phase: {torch.cuda.current_device()} "
+        f"of {n} cards ({card})")
+    for name in set(SERVE_KERNELS) | set(TRAIN_KERNELS):
+        results[name]["launches_devices"] = {
+            path: c[name] for path, c in per_card.items() if name in c}
+
+
+def _in_threads(work, streams):
+    """Run work[i](i) in thread i on streams[i], all started together;
+    their results, or the first exception re-raised."""
+    import threading
+
+    import torch
+    out, errors = [None] * len(work), []
+    start = threading.Barrier(len(work))
+
+    def run(i):
+        try:
+            start.wait()
+            with torch.cuda.stream(streams[i]):
+                out[i] = work[i](i)
+        except BaseException as e:           # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(work))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _snapshot(state):
+    return ({k: v.clone() for k, v in state.model.state_dict().items()},
+            {k: v.clone() for k, v in state.masters.items()},
+            state.generator.get_state(), state.step)
+
+
+def _restore(state, snap) -> None:
+    """The state as `_snapshot` took it, AdamW's moments cleared (the
+    snapshot is taken before the first step)."""
+    model, masters, gen, step = snap
+    state.model.load_state_dict(model)
+    for k, v in masters.items():
+        state.masters[k].copy_(v)
+    state.generator.set_state(gen)
+    state.step = step
+    state.optimizer.state.clear()
+
+
+def phase_threads(results, card: str):
+    """Two Python threads, each on its own CUDA stream, serve two different
+    BASE bf16 batch-8 requests THREAD_REQUESTS times each, at once, through
+    one model: every result equals the serial run's ids. Then two threads
+    each take THREAD_STEPS bf16 train steps at batch 4 on a model of their
+    own at once: the losses equal the same steps run one thread after the
+    other (kernels 6-9)."""
+    import torch
+    from prismer_tpu_torch.models.caption import build_generate_fn
+    from prismer_tpu_torch.train import build_train_step
+
+    cfg, model, requests = serve_setup()
+    generate = build_generate_fn(model)
+    reqs = requests[:2]
+    want = [_serve_ids(generate, r) for r in reqs]
+    t0 = time.perf_counter()
+    for r in reqs:
+        for _ in range(THREAD_REQUESTS):
+            _serve_ids(generate, r)
+    serial_s = time.perf_counter() - t0
+    streams = [torch.cuda.Stream() for _ in reqs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    _zero_counts()
+    t0 = time.perf_counter()
+    got = _in_threads([lambda i: [_serve_ids(generate, reqs[i])
+                                  for _ in range(THREAD_REQUESTS)]] * 2,
+                      streams)
+    wall = time.perf_counter() - t0
+    counts = _launch_counts(SERVE_KERNELS)
+    equal = [[torch.equal(g, want[i]) for g in got[i]] for i in range(2)]
+    log(f"  2 threads x {THREAD_REQUESTS} BASE bf16 batch-8 requests at "
+        f"once through one model: ids equal the serial run's {equal}; "
+        f"{wall:.3f} s wall, the same {2 * THREAD_REQUESTS} requests one "
+        f"after another {serial_s:.3f} s; launches " + ", ".join(
+            f"{k}={v}" for k, v in counts.items()))
+    expect(all(map(all, equal)), "threaded serving ids differ from serial")
+    expect(all(counts.values()), f"threaded serving launches {counts}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    batches = [caption_batch(cfg, 4, gen, "cuda") for _ in range(2)]
+    states = [train_state(cfg, "cuda", TRAIN_LR) for _ in range(2)]
+    steps = [build_train_step(st.model) for st in states]
+    snaps = [_snapshot(st) for st in states]
+
+    def train(i):
+        return [float(steps[i](states[i], batches[i])[1]["loss"])
+                for _ in range(THREAD_STEPS)]
+
+    serial = [train(i) for i in range(2)]
+    for st, snap in zip(states, snaps):
+        _restore(st, snap)
+    torch.cuda.synchronize()
+    _zero_counts()
+    threaded = _in_threads([train] * 2, streams)
+    counts = _launch_counts(TRAIN_KERNELS)
+    log(f"  2 threads x {THREAD_STEPS} bf16 train steps at batch 4 on a "
+        f"model each, at once: losses {threaded}, serial {serial}; "
+        f"launches " + ", ".join(f"{k}={v}" for k, v in counts.items())
+        + f" ({card})")
+    expect(threaded == serial, "threaded train losses differ from serial")
+    expect(all(counts.values()), f"threaded train launches {counts}")
+    _FILES["spare_state"] = states[0]     # phase "label cache" trains it
+    del states, steps, snaps
+    torch.cuda.empty_cache()
+
+
+PNG_FIXTURES = ROOT / "tests" / "data" / "png"
+CACHE_BATCHES = 1        # batches compared with the label cache off and on
+
+
+def phase_png(results, card: str):
+    """Every PNG fixture (tests/data/png: each colour type and bit depth,
+    plain and Adam7) decoded by data/png.py in "L", "RGB" and the file's
+    own mode to the sha256 Pillow gave where it was written."""
+    import hashlib
+
+    import numpy as np
+    from prismer_tpu_torch.data import png
+
+    expected = json.loads((PNG_FIXTURES / "expected.json").read_text())
+    t0 = time.perf_counter()
+    for name, e in sorted(expected["files"].items()):
+        data = (PNG_FIXTURES / name).read_bytes()
+        for mode, key in (("L", "L"), ("RGB", "RGB"), (None, "own")):
+            px = png.decode_png(data, mode)
+            if px.dtype == np.bool_:           # hashed as 0 / 1 bytes
+                px = px.astype(np.uint8)
+            digest = hashlib.sha256(px.tobytes()).hexdigest()
+            expect(list(px.shape) == e[key]["shape"]
+                   and digest == e[key]["sha256"],
+                   f"{name} {key}: {px.shape} sha256 {digest[:12]}, Pillow "
+                   f"gave {e[key]['shape']} {e[key]['sha256'][:12]}")
+    log(f"  {len(expected['files'])} fixtures x 3 modes decode to the "
+        f"pixels of Pillow {expected['pillow']} (sha256 equal) in "
+        f"{time.perf_counter() - t0:.2f} s ({host_cpu()})")
+
+
+def phase_label_cache(results, card: str):
+    """The "data" tree read with PRISMER_LABEL_CACHE in a temporary
+    directory: records/s of an epoch through the loader (min(8, cores)
+    forked workers) with the cache off, cold (writing) and warm; the first
+    CACHE_BATCHES batches of records read in order from one seed in this
+    process and collated as the loader does, cache off and warm,
+    bit-equal; then
+    FILES_STEPS bf16 BASE train steps at batch 16 fed warm (ms/step and
+    the device's idle share, as phase "train from files" measures them).
+    A record, not a claim."""
+    import os
+    import random
+    import shutil
+    import tempfile
+
+    import torch
+    from prismer_tpu_torch.data import create_loader
+    from prismer_tpu_torch.data.loader import default_collate
+    from prismer_tpu_torch.train import build_train_step
+
+    train_ds = _FILES["train_ds"]
+    cache = tempfile.mkdtemp(prefix="label_cache_", dir=ROOT / "build")
+    atexit.register(shutil.rmtree, cache, True)
+
+    def set_cache(on: bool) -> None:
+        if on:
+            os.environ["PRISMER_LABEL_CACHE"] = cache
+        else:
+            os.environ.pop("PRISMER_LABEL_CACHE", None)
+
+    def epoch() -> float:
+        loader = create_loader(train_ds, FILES_BATCH,
+                               num_workers=_FILES["workers"], train=True)
+        t0 = time.perf_counter()
+        n = sum(len(b["caption"]) for b in loader)
+        return n / (time.perf_counter() - t0)
+
+    def records() -> list:   # the first CACHE_BATCHES batches, in order
+        random.seed(SEED)
+        return [default_collate([train_ds[i] for i in range(
+            b * FILES_BATCH, (b + 1) * FILES_BATCH)])
+            for b in range(CACHE_BATCHES)]
+
+    try:
+        set_cache(False)
+        off = epoch()
+        want = records()
+        set_cache(True)
+        cold = epoch()
+        entries = sum(len(f) for _, _, f in os.walk(cache))
+        warm = epoch()
+        got = records()
+        same = all(_same_batch(g, w) for g, w in zip(got, want)) and \
+            len(got) == len(want)
+        log(f"  records/s over an epoch of {len(train_ds)}, batch "
+            f"{FILES_BATCH}, {_FILES['workers']} forked workers: cache off "
+            f"{off:.1f}, cold {cold:.1f} (wrote {entries} entries), warm "
+            f"{warm:.1f}; per worker {off / _FILES['workers']:.1f} / "
+            f"{cold / _FILES['workers']:.1f} / {warm / _FILES['workers']:.1f}"
+            f" ({host_cpu()})")
+        log(f"  {len(got)} batch(es) of {FILES_BATCH} records read in order, "
+            f"cache warm vs off: bit-equal {same}")
+        expect(same, "batches with the label cache differ from without")
+        expect(entries == len(train_ds) * len(FILES_EXPERTS),
+               f"{entries} cache entries")
+
+        cfg = slice_config("bfloat16")
+        state = (_FILES.pop("spare_state", None)
+                 or train_state(cfg, "cuda", TRAIN_LR))
+        run = file_fed_steps(cfg, state, build_train_step(state.model))
+    finally:
+        set_cache(False)
+    n = FILES_STEPS - 1
+    wall, busy = run["wall"], run["busy"]
+    log(f"  bf16 BASE batch {FILES_BATCH} fed warm: steps 2-{FILES_STEPS} "
+        f"{wall / n:.1f} ms/step, {FILES_BATCH * 1000.0 * n / wall:.1f} "
+        f"images/s, idle share {1 - busy / wall:.3f}; losses "
+        + " ".join(f"{x:.4f}" for x in run["losses"])
+        + f" ({_FILES['workers']} loader workers; {host_cpu()}; {card})")
+    expect(all(map(math.isfinite, run["losses"])), "train loss not finite")
+    expect(all(run["counts"].values()), f"launches {run['counts']}")
+    del state, run
+    torch.cuda.empty_cache()
+
+
+def _same_batch(got, want) -> bool:
+    """Two collated batches: equal keys, and every array bit-equal."""
+    import numpy as np
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and got.keys() == want.keys()
+                and all(_same_batch(got[k], want[k]) for k in want))
+    if isinstance(want, np.ndarray):
+        return (isinstance(got, np.ndarray) and got.dtype == want.dtype
+                and np.array_equal(got, want))
+    return got == want
 
 
 class _Int8Steps:
@@ -5364,7 +5733,11 @@ def main(argv=None) -> int:
               ("experts parity", phase_experts_parity),
               ("experts generate", lambda r: phase_experts_generate(r, card)),
               ("experts demo", lambda r: phase_experts_demo(r, card)),
-              ("multi-gpu", lambda r: phase_multi_gpu(r, card)))
+              ("multi-gpu", lambda r: phase_multi_gpu(r, card)),
+              ("devices", lambda r: phase_devices(r, card)),
+              ("threads", lambda r: phase_threads(r, card)),
+              ("png", lambda r: phase_png(r, card)),
+              ("label cache", lambda r: phase_label_cache(r, card)))
     t_experts = 0.0
     for name, fn in phases:
         log(f"phase {name}")

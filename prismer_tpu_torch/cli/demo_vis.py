@@ -26,7 +26,6 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
-from prismer_tpu_torch.data import pil_ops
 from prismer_tpu_torch.data.labels import read_rgb
 from prismer_tpu_torch.data.pil_warp import (resize_bilinear_u8,
                                              resize_nearest_u8)
@@ -72,7 +71,7 @@ def load_panel(label_path: str, exp: str, rel_dir: str, fname: str,
     p = os.path.join(label_path, exp, rel_dir, fname)
     if not os.path.exists(p):
         return np.full((size[1], size[0], 3), MISSING, np.uint8)
-    arr = pil_ops.to_mode(read_png(p), "L" if exp != "normal" else "RGB")
+    arr = read_png(p, "L" if exp != "normal" else "RGB")
     if exp == "depth":
         out = _plasma(arr)
     elif exp == "normal":

@@ -616,13 +616,10 @@ grouped_attn_kernel(const __grid_constant__ Params p) {
 
 template <typename T, int MODE, int KT>
 cudaError_t launch(const Params& p, int BH, cudaStream_t st) {
-  static bool granted = false;
-  if (!granted) {
-    const cudaError_t err = hopper::grant_smem(
-        grouped_attn_kernel<T, MODE, KT>, hopper::kMaxSmem);
-    if (err != cudaSuccess) return err;
-    granted = true;
-  }
+  static hopper::SmemGrant granted;
+  const cudaError_t err =
+      granted.ensure(grouped_attn_kernel<T, MODE, KT>, hopper::kMaxSmem);
+  if (err != cudaSuccess) return err;
   grouped_attn_kernel<T, MODE, KT>
       <<<dim3(kSplit, BH), kThreads, p.lay.bytes, st>>>(p);
   return cudaGetLastError();

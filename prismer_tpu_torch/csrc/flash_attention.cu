@@ -658,26 +658,18 @@ flash_fwd_tile_kernel(const __grid_constant__ TcParams p) {
 template <int DH>
 cudaError_t launch_tc(const TcParams& p, int B, cudaStream_t stream) {
   if (p.Lk <= tile_keys(DH)) {
-    static bool granted = false;
+    static hopper::SmemGrant granted;
     constexpr size_t smem = FwdLayout<DH, 1, 1>::kBytes;
-    if (!granted) {
-      const cudaError_t err =
-          hopper::grant_smem(flash_fwd_tile_kernel<DH>, smem);
-      if (err != cudaSuccess) return err;
-      granted = true;
-    }
+    const cudaError_t err = granted.ensure(flash_fwd_tile_kernel<DH>, smem);
+    if (err != cudaSuccess) return err;
     const dim3 grid((p.Lq + kRows - 1) / kRows, p.H, B);
     flash_fwd_tile_kernel<DH><<<grid, 128, smem, stream>>>(p);
     return cudaGetLastError();
   }
-  static bool granted = false;
+  static hopper::SmemGrant granted;
   constexpr size_t smem = FwdLayout<DH, kRingGroups, kRingStages>::kBytes;
-  if (!granted) {
-    const cudaError_t err =
-        hopper::grant_smem(flash_fwd_ring_kernel<DH>, smem);
-    if (err != cudaSuccess) return err;
-    granted = true;
-  }
+  const cudaError_t err = granted.ensure(flash_fwd_ring_kernel<DH>, smem);
+  if (err != cudaSuccess) return err;
   const int rows = kRingGroups * kRows;
   const dim3 grid((p.Lq + rows - 1) / rows, p.H, B);
   flash_fwd_ring_kernel<DH><<<grid, kRingThreads, smem, stream>>>(p);

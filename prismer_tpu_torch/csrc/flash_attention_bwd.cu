@@ -90,7 +90,6 @@ namespace {
 constexpr float kMaskFill = -1.0e9f;   // flash_attention.py:54 NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 
-using hopper::grant_smem;
 
 // ---------------------------------------------------------------------------
 // fp32: FMA tiles
@@ -483,14 +482,11 @@ constexpr size_t dq_smem() {
 
 template <int DH>
 cudaError_t launch_dkv_f32(const Params& p, cudaStream_t stream) {
-  static bool granted = false;
+  static hopper::SmemGrant granted;
   constexpr int own = dkv_own<DH>();
   constexpr size_t smem = dkv_smem<DH, own>();
-  if (!granted) {
-    const cudaError_t err = grant_smem(flash_bwd_dkv_f32<DH, own>, smem);
-    if (err != cudaSuccess) return err;
-    granted = true;
-  }
+  const cudaError_t err = granted.ensure(flash_bwd_dkv_f32<DH, own>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((p.Lk + own - 1) / own, p.H, p.B);
   flash_bwd_dkv_f32<DH, own><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -498,13 +494,10 @@ cudaError_t launch_dkv_f32(const Params& p, cudaStream_t stream) {
 
 template <int DH>
 cudaError_t launch_dq_f32(const Params& p, cudaStream_t stream) {
-  static bool granted = false;
+  static hopper::SmemGrant granted;
   constexpr size_t smem = dq_smem<DH>();
-  if (!granted) {
-    const cudaError_t err = grant_smem(flash_bwd_dq_f32<DH>, smem);
-    if (err != cudaSuccess) return err;
-    granted = true;
-  }
+  const cudaError_t err = granted.ensure(flash_bwd_dq_f32<DH>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((p.Lq + kOwn - 1) / kOwn, p.H, p.B);
   flash_bwd_dq_f32<DH><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -875,14 +868,11 @@ flash_bwd_dq_tc(const __grid_constant__ TcParams p) {
 
 template <int DH>
 cudaError_t launch_dkv_tc(const TcParams& p, cudaStream_t stream) {
-  static bool granted = false;
+  static hopper::SmemGrant granted;
   constexpr size_t smem =
       TcLayout<DH, dkv_stream(DH), tc_stages(DH)>::kBytes;
-  if (!granted) {
-    const cudaError_t err = grant_smem(flash_bwd_dkv_tc<DH>, smem);
-    if (err != cudaSuccess) return err;
-    granted = true;
-  }
+  const cudaError_t err = granted.ensure(flash_bwd_dkv_tc<DH>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((p.Lk + kOwnRows - 1) / kOwnRows, p.H, p.B);
   flash_bwd_dkv_tc<DH><<<grid, kTcThreads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -890,13 +880,10 @@ cudaError_t launch_dkv_tc(const TcParams& p, cudaStream_t stream) {
 
 template <int DH>
 cudaError_t launch_dq_tc(const TcParams& p, cudaStream_t stream) {
-  static bool granted = false;
+  static hopper::SmemGrant granted;
   constexpr size_t smem = TcLayout<DH, kDqStream, tc_stages(DH)>::kBytes;
-  if (!granted) {
-    const cudaError_t err = grant_smem(flash_bwd_dq_tc<DH>, smem);
-    if (err != cudaSuccess) return err;
-    granted = true;
-  }
+  const cudaError_t err = granted.ensure(flash_bwd_dq_tc<DH>, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((p.Lq + kOwnRows - 1) / kOwnRows, p.H, p.B);
   flash_bwd_dq_tc<DH><<<grid, kTcThreads, smem, stream>>>(p);
   return cudaGetLastError();

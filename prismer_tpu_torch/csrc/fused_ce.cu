@@ -1057,35 +1057,15 @@ ce_demb_mma_kernel(const __grid_constant__ CUtensorMap dxmap,
 // host
 // ---------------------------------------------------------------------------
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess) {
-      sms = 0;
-    }
-  }
-  return sms;
-}
-
-template <typename K>
-cudaError_t grant_once(K kernel, size_t bytes, size_t* granted) {
-  if (bytes <= *granted) return cudaSuccess;
-  const cudaError_t err = hopper::grant_smem(kernel, bytes);
-  if (err == cudaSuccess) *granted = bytes;
-  return err;
-}
+using hopper::sm_count;
 
 template <int WG, bool GRAD>
 cudaError_t launch_logits_wg(const CUtensorMap& hm, const CUtensorMap& em,
                              const CUtensorMap& dxm, const LogitsArgs& a,
                              const Plan& p, cudaStream_t st) {
-  static size_t granted = 48 * 1024;
+  static hopper::SmemGrant granted;
   const size_t smem = GRAD ? p.smem_dx : p.smem_stats;
-  const cudaError_t err =
-      grant_once(ce_logits_kernel<WG, GRAD>, smem, &granted);
+  const cudaError_t err = granted.ensure(ce_logits_kernel<WG, GRAD>, smem);
   if (err != cudaSuccess) return err;
   return hopper::launch_pdl(ce_logits_kernel<WG, GRAD>,
                             dim3(p.row_tiles, p.vtiles), WG * kWg, smem, st,
@@ -1107,9 +1087,8 @@ cudaError_t launch_logits(const CUtensorMap& hm, const CUtensorMap& em,
 template <int WG, int NT>
 cudaError_t launch_dh_wg(const CUtensorMap& em, const CUtensorMap& dxm,
                          const DhArgs& a, const Plan& p, cudaStream_t st) {
-  static size_t granted = 48 * 1024;
-  const cudaError_t err =
-      grant_once(ce_dh_mma_kernel<WG, NT>, p.h_smem, &granted);
+  static hopper::SmemGrant granted;
+  const cudaError_t err = granted.ensure(ce_dh_mma_kernel<WG, NT>, p.h_smem);
   if (err != cudaSuccess) return err;
   return hopper::launch_pdl(ce_dh_mma_kernel<WG, NT>,
                             dim3(p.h_row_tiles, p.h_dslices, p.h_ksplit),
@@ -1210,8 +1189,8 @@ cudaError_t run_grads_bf16(const void* h, const void* emb, const float* bias,
       static_cast<bf16*>(dh), p.h_ksplit, total);
   if (err != cudaSuccess) return err;
 
-  static size_t granted = 48 * 1024;
-  err = grant_once(ce_demb_mma_kernel, p.e_smem, &granted);
+  static hopper::SmemGrant granted;
+  err = granted.ensure(ce_demb_mma_kernel, p.e_smem);
   if (err != cudaSuccess) return err;
   const DembArgs ea = {static_cast<bf16*>(demb), dbias, dbias_part, N, D,
                        V, p.vtiles, p.row_tiles, p.e_dslices, p.e_kchunks,
@@ -1225,9 +1204,9 @@ cudaError_t run_stats_f32(const float* h, const float* emb, const float* bias,
                           const int* labels, float* work, float* xlab,
                           float* sumx, float* lse, int N, int D, int V,
                           int ntiles, cudaStream_t st) {
-  static size_t granted = 48 * 1024;
+  static hopper::SmemGrant granted;
   const size_t smem = fma_smem_bytes(D);
-  cudaError_t err = grant_once(ce_stats_kernel, smem, &granted);
+  cudaError_t err = granted.ensure(ce_stats_kernel, smem);
   if (err != cudaSuccess) return err;
   const size_t np = static_cast<size_t>(N) * ntiles;
   float* pmax = work;
@@ -1251,12 +1230,11 @@ cudaError_t run_grads_f32(const float* h, const float* emb, const float* bias,
                           float* demb, float* dbias, int N, int D, int V,
                           int ntiles, int groups, float s_over_v,
                           float one_minus_s, cudaStream_t st) {
-  static size_t granted_dh = 48 * 1024;
-  static size_t granted_demb = 48 * 1024;
+  static hopper::SmemGrant granted_dh, granted_demb;
   const size_t smem = fma_smem_bytes(D);
-  cudaError_t err = grant_once(ce_dh_kernel, smem, &granted_dh);
+  cudaError_t err = granted_dh.ensure(ce_dh_kernel, smem);
   if (err != cudaSuccess) return err;
-  err = grant_once(ce_demb_kernel, smem, &granted_demb);
+  err = granted_demb.ensure(ce_demb_kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 g_dh(groups, (N + kRows - 1) / kRows,
                   (D + kDhCols - 1) / kDhCols);

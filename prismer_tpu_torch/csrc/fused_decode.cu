@@ -107,6 +107,7 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <mutex>
 #include <type_traits>
 #include <utility>
 
@@ -130,7 +131,6 @@ constexpr int kDenseWarps = 8;
 constexpr int kDenseThreads = 32 * kDenseWarps;
 constexpr int kMaxRows = 32;           // rows per block; more rows, more blocks
 constexpr int kChunkBytes = 48 * 1024; // input tile of an FMA projection
-constexpr size_t kMaxSmem = 227 * 1024;
 constexpr int kSelfThreads = 128;
 constexpr int kCrossThreads = 512;
 constexpr int kCrossWarps = kCrossThreads / 32;
@@ -142,7 +142,8 @@ enum Act { kActNone = 0, kActSqRelu = 1, kActGelu = 2 };
 using hopper::grid_dep_launch;
 using hopper::grid_dep_wait;
 
-int g_launches = 0;   // kernels the last step launched
+// kernels the calling thread's last step launched
+thread_local int g_launches = 0;
 
 // Every kernel of the step goes through here: programmatic stream
 // serialization lets it launch while the kernel before it still runs (it
@@ -168,18 +169,6 @@ cudaError_t launch(void (*kernel)(Params...), dim3 grid, int threads,
   cfg.numAttrs = cluster > 1 ? 2 : 1;
   ++g_launches;
   return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
-}
-
-// Raise a kernel's dynamic shared memory limit once per size it needs.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes, size_t* granted) {
-  if (bytes <= *granted) return cudaSuccess;
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err == cudaSuccess) *granted = bytes;
-  return err;
 }
 
 // x = o + res over one row of D <= kMaxLnDim, read by one warp (16 bytes
@@ -407,12 +396,12 @@ dense_kernel(const DenseParams<T> p) {
 
 template <typename T, int NR>
 cudaError_t launch_dense_nr(DenseParams<T> p, cudaStream_t st) {
-  static size_t granted = 48 * 1024;
+  static hopper::SmemGrant granted;
   constexpr int esz = sizeof(T);
   p.kc = std::min(p.K, std::max(8, kChunkBytes / (NR * esz) / 8 * 8));
   const size_t smem = static_cast<size_t>(NR) * p.kc * esz +
                       NR * sizeof(float2);
-  cudaError_t err = allow_smem(dense_kernel<T, NR>, smem, &granted);
+  cudaError_t err = granted.ensure(dense_kernel<T, NR>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.M + kDenseWarps - 1) / kDenseWarps,
                   (p.N + NR - 1) / NR);
@@ -671,8 +660,8 @@ proj_kernel(const __grid_constant__ CUtensorMap wmap, const ProjParams p) {
 template <int NT>
 cudaError_t launch_proj_rows(const ProjParams& p, const CUtensorMap& map,
                              const DensePlan& q, cudaStream_t st) {
-  static size_t granted = 48 * 1024;
-  const cudaError_t err = allow_smem(proj_kernel<NT>, q.smem, &granted);
+  static hopper::SmemGrant granted;
+  const cudaError_t err = granted.ensure(proj_kernel<NT>, q.smem);
   if (err != cudaSuccess) return err;
   return launch(proj_kernel<NT>, dim3(q.split, q.col_tiles, q.row_tiles),
                 kProjThreads, q.smem, q.split, st, map, p);
@@ -709,37 +698,58 @@ cudaError_t launch_dense<__nv_bfloat16>(const DenseParams<__nv_bfloat16>& p,
 // the matrices with K = D (qkv, self-out, cross-q, cross-out, adaptor down
 // and up, W1, one after the other), one layer after the other; fmap W2
 // (K = F). Encoded once per (w_all, D, F, NLc): the weights do not move
-// between steps.
+// between steps. A few packings (the models a process serves) keep their
+// maps; the caller gets a copy, made under the cache's lock, since another
+// thread's miss may reuse the entry.
 struct WeightMaps {
   const void* w = nullptr;
   int D = 0, F = 0, NLc = 0;
   CUtensorMap dmap[2], fmap[2];
 };
 
-const WeightMaps* weight_maps(const void* w_all, int D, int F, int NLc) {
-  static WeightMaps m;
-  if (m.w == w_all && m.D == D && m.F == F && m.NLc == NLc) return &m;
+constexpr int kWeightMapCache = 4;
+
+bool encode_weight_maps(WeightMaps* m, const void* w_all, int D, int F,
+                        int NLc) {
   const int64_t dd = static_cast<int64_t>(D) * D;
   const int64_t fd = static_cast<int64_t>(F) * D;
   const int64_t layer = 8 * dd + 2 * fd;
   const auto* w = static_cast<const __nv_bfloat16*>(w_all);
   const auto* wo = w + NLc * layer;
-  bool ok = hopper::encode_bf16_rows(&m.dmap[1], wo, 1, 1, 4 * D + F, D, 0,
+  bool ok = hopper::encode_bf16_rows(&m->dmap[1], wo, 1, 1, 4 * D + F, D, 0,
                                      0, D, kTile) &&
-            hopper::encode_bf16_rows(&m.fmap[1], wo + 4 * dd + fd, 1, 1, D,
+            hopper::encode_bf16_rows(&m->fmap[1], wo + 4 * dd + fd, 1, 1, D,
                                      F, 0, 0, F, kTile);
   if (NLc > 0) {
     ok = ok &&
-         hopper::encode_bf16_rows(&m.dmap[0], w, 1, NLc, 8 * D + F, D, 0,
+         hopper::encode_bf16_rows(&m->dmap[0], w, 1, NLc, 8 * D + F, D, 0,
                                   layer, D, kTile) &&
-         hopper::encode_bf16_rows(&m.fmap[0], w + 8 * dd + fd, 1, NLc, D, F,
-                                  0, layer, F, kTile);
+         hopper::encode_bf16_rows(&m->fmap[0], w + 8 * dd + fd, 1, NLc, D,
+                                  F, 0, layer, F, kTile);
   }
-  m.w = ok ? w_all : nullptr;
-  m.D = D;
-  m.F = F;
-  m.NLc = NLc;
-  return ok ? &m : nullptr;
+  m->w = ok ? w_all : nullptr;
+  m->D = D;
+  m->F = F;
+  m->NLc = NLc;
+  return ok;
+}
+
+bool weight_maps(WeightMaps* out, const void* w_all, int D, int F, int NLc) {
+  static std::mutex mu;
+  static WeightMaps cache[kWeightMapCache];
+  static int next = 0;
+  const std::lock_guard<std::mutex> lock(mu);
+  for (const WeightMaps& m : cache) {
+    if (m.w == w_all && m.D == D && m.F == F && m.NLc == NLc) {
+      *out = m;
+      return true;
+    }
+  }
+  WeightMaps& m = cache[next];
+  next = (next + 1) % kWeightMapCache;
+  if (!encode_weight_maps(&m, w_all, D, F, NLc)) return false;
+  *out = m;
+  return true;
 }
 
 // ---------------------------------------------------------------------------
@@ -1071,12 +1081,11 @@ cross_attn_kernel(const CrossParams<T, KV> p) {
 
 template <typename T, typename KV, int BEAMS>
 cudaError_t launch_cross_beams(const CrossParams<T, KV>& p, cudaStream_t st) {
-  static size_t granted = 48 * 1024;
+  static hopper::SmemGrant granted;
   const size_t smem = (static_cast<size_t>(BEAMS) * p.L +
                        static_cast<size_t>(kCrossWarps) * BEAMS * p.Dh) *
                       sizeof(float);
-  const cudaError_t err =
-      allow_smem(cross_attn_kernel<T, KV, BEAMS>, smem, &granted);
+  const cudaError_t err = granted.ensure(cross_attn_kernel<T, KV, BEAMS>, smem);
   if (err != cudaSuccess) return err;
   return launch(cross_attn_kernel<T, KV, BEAMS>, dim3(p.H, p.B),
                 kCrossThreads, smem, 1, st, p);
@@ -1170,7 +1179,7 @@ struct StepArgs {
 
 template <typename T>
 cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
-  static size_t self_granted = 48 * 1024;
+  static hopper::SmemGrant self_granted;
   const int N = a.N, D = a.D, F = a.F, Dh = D / a.H;
   const size_t nd = static_cast<size_t>(N) * D;
   const size_t slab = static_cast<size_t>(a.T) * nd;       // one layer cache
@@ -1193,13 +1202,16 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
   const size_t self_smem = (2 * static_cast<size_t>(a.T) * (Dh + 1) + Dh +
                             a.T) * sizeof(float);
   const int beams = N / a.B;
-  RETURN_IF_ERR(allow_smem(self_attn_kernel<T>, self_smem, &self_granted));
+  RETURN_IF_ERR(self_granted.ensure(self_attn_kernel<T>, self_smem));
 
   // bf16: the weights' tensor maps, and where each W lies in them
+  WeightMaps wmaps;
   const WeightMaps* maps = nullptr;
   if (std::is_same<T, __nv_bfloat16>::value) {
-    maps = weight_maps(a.w_all, D, F, a.NLc);
-    if (maps == nullptr) return cudaErrorInvalidValue;
+    if (!weight_maps(&wmaps, a.w_all, D, F, a.NLc)) {
+      return cudaErrorInvalidValue;
+    }
+    maps = &wmaps;
   }
   const T* const w0 = static_cast<const T*>(a.w_all);
   const size_t wl = 8 * dd + 2 * fd;       // one cross layer's weights

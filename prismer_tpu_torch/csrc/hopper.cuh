@@ -37,6 +37,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <utility>
 
 namespace hopper {
@@ -53,8 +54,8 @@ using EncodeTiled = CUresult (*)(
 
 // cuTensorMapEncodeTiled from the driver that the runtime loaded, or null
 inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
+  // looked up once: a function-local static is initialised thread-safely
+  static const EncodeTiled fn = []() -> EncodeTiled {
     void* ptr = nullptr;
     cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
@@ -65,9 +66,10 @@ inline EncodeTiled encode_tiled() {
         "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
 #endif
     if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(ptr);
+      return reinterpret_cast<EncodeTiled>(ptr);
     }
-  }
+    return nullptr;
+  }();
   return fn;
 }
 
@@ -138,8 +140,9 @@ inline bool aligned(const void* const* ptrs, int n_ptrs,
 // including this header shares: weights do not move between calls, and a
 // map stays valid for whatever tensor later lies at the same address with
 // the same shape (PyTorch's allocator hands per-call activations and
-// scratch back at the same few addresses). The caller gets a copy: a later
-// miss may reuse the cache entry of an earlier hit.
+// scratch back at the same few addresses). The caller gets a copy, made
+// under the cache's lock: a later miss, in this thread or another, may
+// reuse the cache entry of an earlier hit.
 constexpr int kMapCache = 128;
 
 inline bool cached_bf16_map(CUtensorMap* out, const void* p, int rows,
@@ -151,8 +154,10 @@ inline bool cached_bf16_map(CUtensorMap* out, const void* p, int rows,
     int box = 0;
     CUtensorMap map;
   };
+  static std::mutex mu;
   static Entry cache[kMapCache];
   static int next = 0;
+  const std::lock_guard<std::mutex> lock(mu);
   for (const Entry& e : cache) {
     if (e.p == p && e.rows == rows && e.cols == cols && e.box == box_rows) {
       *out = e.map;
@@ -184,6 +189,63 @@ cudaError_t grant_smem(K kernel, size_t bytes) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
+
+// ---------------------------------------------------------------------------
+// host: per-device facts. A process may launch on any of its cards, from any
+// thread: the wrappers make the tensors' card current for each launch
+// (ops/_build.py `launch_device`), and what the host keeps of a card is kept
+// per device, under a lock.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxDevices = 64;   // cards whose facts the tables keep
+
+// the current device; a device past the tables is an error, not a miss
+inline cudaError_t current_device(int* dev) {
+  const cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  return *dev >= 0 && *dev < kMaxDevices ? cudaSuccess
+                                         : cudaErrorInvalidDevice;
+}
+
+// the current device's SM count, read once per device; 0 on an error
+inline int sm_count() {
+  static std::mutex mu;
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  if (current_device(&dev) != cudaSuccess) return 0;
+  const std::lock_guard<std::mutex> lock(mu);
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess) {
+    sms[dev] = 0;
+  }
+  return sms[dev];
+}
+
+// One kernel's dynamic shared-memory grant on each device: the attribute
+// that cudaFuncSetAttribute sets holds for the current device only. A
+// launch site keeps one of these in a static and calls ensure() before each
+// launch; the grant is raised when a launch needs more than any before it
+// on that device.
+class SmemGrant {
+ public:
+  template <typename K>
+  cudaError_t ensure(K kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    int dev = 0;
+    cudaError_t err = current_device(&dev);
+    if (err != cudaSuccess) return err;
+    const std::lock_guard<std::mutex> lock(mu_);
+    if (bytes_[dev] >= bytes) return cudaSuccess;
+    err = grant_smem(kernel, bytes);
+    if (err == cudaSuccess) bytes_[dev] = bytes;
+    return err;
+  }
+
+ private:
+  std::mutex mu_;
+  size_t bytes_[kMaxDevices] = {};
+};
 
 // ---------------------------------------------------------------------------
 // programmatic dependent launch

@@ -58,6 +58,7 @@
 
 #include <algorithm>
 #include <climits>
+#include <mutex>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -693,54 +694,48 @@ cudaError_t launch_select(int K, const float* logits, const float* pmax,
 #undef PRISMER_SELECT_ROWS
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess) {
-      sms = 0;
-    }
-  }
-  return sms;
-}
+using hopper::sm_count;
 
 // The embedding's tensor map (64 x 64 boxes, 128-byte swizzle), encoded
 // once per (pointer, V, D): the weights do not move between steps. A few
-// embeddings (the models a process serves) keep their maps.
-const CUtensorMap* embedding_map(const void* emb, int V, int D) {
+// embeddings (the models a process serves) keep their maps. The caller
+// gets a copy, made under the cache's lock: another thread's miss may
+// reuse the entry.
+bool embedding_map(CUtensorMap* out, const void* emb, int V, int D) {
   struct Entry {
     const void* emb = nullptr;
     int V = 0, D = 0;
     CUtensorMap map;
   };
+  static std::mutex mu;
   static Entry cache[4];
   static int next = 0;
-  for (Entry& e : cache) {
-    if (e.emb == emb && e.V == V && e.D == D) return &e.map;
+  const std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : cache) {
+    if (e.emb == emb && e.V == V && e.D == D) {
+      *out = e.map;
+      return true;
+    }
   }
   Entry& e = cache[next];
   next = (next + 1) % 4;
   e.emb = nullptr;
   if (!hopper::encode_bf16_rows(&e.map, emb, 1, 1, V, D, 0, 0, D, kTileV)) {
-    return nullptr;
+    return false;
   }
   e.emb = emb;
   e.V = V;
   e.D = D;
-  return &e.map;
+  *out = e.map;
+  return true;
 }
 
 template <int NT>
 cudaError_t launch_logits_rows(const CUtensorMap& map, const LogitsArgs& a,
                                const LogitsPlan& p, cudaStream_t st) {
-  static size_t granted = 48 * 1024;
-  if (static_cast<size_t>(p.smem) > granted) {
-    const cudaError_t err = hopper::grant_smem(logits_kernel<NT>, p.smem);
-    if (err != cudaSuccess) return err;
-    granted = p.smem;
-  }
+  static hopper::SmemGrant granted;
+  const cudaError_t err = granted.ensure(logits_kernel<NT>, p.smem);
+  if (err != cudaSuccess) return err;
   return hopper::launch_pdl(logits_kernel<NT>, dim3(p.blocks, p.row_tiles),
                             kLogitsThreads, p.smem, st, map, a);
 }
@@ -752,17 +747,17 @@ cudaError_t launch_logits(const __nv_bfloat16* h, const void* emb,
   if (sms <= 0) return cudaErrorInvalidDevice;
   const LogitsPlan p = logits_plan(N, D, V, sms);
   if (static_cast<size_t>(p.smem) > kMaxSmem) return cudaErrorInvalidValue;
-  const CUtensorMap* map = embedding_map(emb, V, D);
-  if (map == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap map;
+  if (!embedding_map(&map, emb, V, D)) return cudaErrorInvalidValue;
   const LogitsArgs a{h, bias, logits, pmax, psum, N, D, V, p.tiles,
                      p.chunks, p.stages};
   switch (p.rows) {
-    case 8: return launch_logits_rows<8>(*map, a, p, st);
-    case 16: return launch_logits_rows<16>(*map, a, p, st);
-    case 24: return launch_logits_rows<24>(*map, a, p, st);
-    case 32: return launch_logits_rows<32>(*map, a, p, st);
-    case 48: return launch_logits_rows<48>(*map, a, p, st);
-    default: return launch_logits_rows<64>(*map, a, p, st);
+    case 8: return launch_logits_rows<8>(map, a, p, st);
+    case 16: return launch_logits_rows<16>(map, a, p, st);
+    case 24: return launch_logits_rows<24>(map, a, p, st);
+    case 32: return launch_logits_rows<32>(map, a, p, st);
+    case 48: return launch_logits_rows<48>(map, a, p, st);
+    default: return launch_logits_rows<64>(map, a, p, st);
   }
 }
 
@@ -771,15 +766,11 @@ cudaError_t launch_fma_rows(const float* h, const float* emb,
                             const float* bias, float* logits, float* pmax,
                             float* psum, int N, int D, int V, int tiles,
                             cudaStream_t st) {
-  static size_t granted = 48 * 1024;
+  static hopper::SmemGrant granted;
   const size_t smem = static_cast<size_t>(NR) * D * sizeof(float) +
                       static_cast<size_t>(NR) * kTileV * sizeof(float);
-  if (smem > granted) {
-    const cudaError_t err =
-        hopper::grant_smem(fma_logits_kernel<float, NR>, smem);
-    if (err != cudaSuccess) return err;
-    granted = smem;
-  }
+  const cudaError_t err = granted.ensure(fma_logits_kernel<float, NR>, smem);
+  if (err != cudaSuccess) return err;
   return hopper::launch_pdl(fma_logits_kernel<float, NR>,
                             dim3(tiles, (N + NR - 1) / NR), kFmaWarps * 32,
                             smem, st, h, emb, bias, logits, pmax, psum, N, D,

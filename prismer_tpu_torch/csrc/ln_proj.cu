@@ -941,26 +941,7 @@ adaptor_kernel(const __grid_constant__ AdMaps maps, const AdArgs a,
 // host
 // ---------------------------------------------------------------------------
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess) {
-      sms = 0;
-    }
-  }
-  return sms;
-}
-
-template <typename K>
-cudaError_t grant_once(K kernel, size_t bytes, size_t* granted) {
-  if (bytes <= *granted) return cudaSuccess;
-  const cudaError_t err = hopper::grant_smem(kernel, bytes);
-  if (err == cudaSuccess) *granted = bytes;
-  return err;
-}
+using hopper::sm_count;
 
 cudaError_t launch_stats(const bf16* x, float2* stats, int R, int D,
                          float eps, cudaStream_t st) {
@@ -1000,8 +981,8 @@ cudaError_t run_ln_proj_f32(const void* x, const float* scale,
     p.first[i] = first;
     if (i < n) first += cdiv(f[i], kGroup * kBn);
   }
-  static size_t granted = 48 * 1024;
-  const cudaError_t err = grant_once(ln_proj_f32_kernel, smem, &granted);
+  static hopper::SmemGrant granted;
+  const cudaError_t err = granted.ensure(ln_proj_f32_kernel, smem);
   if (err != cudaSuccess) return err;
   ln_proj_f32_kernel<<<dim3(groups, row_tiles), kThreads, smem, st>>>(
       static_cast<const float*>(x), scale, bias, p, R, D, eps, act);
@@ -1056,8 +1037,8 @@ cudaError_t run_ln_proj_bf16(const void* x, const float* scale,
   cudaError_t err =
       launch_stats(static_cast<const bf16*>(x), stats, R, D, eps, st);
   if (err != cudaSuccess) return err;
-  static size_t granted = 48 * 1024;
-  err = grant_once(ln_proj_kernel, p.smem, &granted);
+  static hopper::SmemGrant granted;
+  err = granted.ensure(ln_proj_kernel, p.smem);
   if (err != cudaSuccess) return err;
   return hopper::launch_pdl(ln_proj_kernel, dim3(p.blocks), kProjThreads,
                             p.smem, st, maps, a, scale, bias);
@@ -1072,8 +1053,8 @@ cudaError_t run_adaptor_f32(const void* x, const float* scale,
       smem != f32_smem(kF32AdaptorRows, 2, D)) {
     return cudaErrorInvalidValue;
   }
-  static size_t granted = 48 * 1024;
-  const cudaError_t err = grant_once(adaptor_f32_kernel, smem, &granted);
+  static hopper::SmemGrant granted;
+  const cudaError_t err = granted.ensure(adaptor_f32_kernel, smem);
   if (err != cudaSuccess) return err;
   adaptor_f32_kernel<<<blocks, kThreads, smem, st>>>(
       static_cast<const float*>(x), scale, bias,
@@ -1106,8 +1087,8 @@ cudaError_t run_adaptor_bf16(const void* x, const float* scale,
   cudaError_t err =
       launch_stats(static_cast<const bf16*>(x), stats, R, D, eps, st);
   if (err != cudaSuccess) return err;
-  static size_t granted = 48 * 1024;
-  err = grant_once(adaptor_kernel, p.smem, &granted);
+  static hopper::SmemGrant granted;
+  err = granted.ensure(adaptor_kernel, p.smem);
   if (err != cudaSuccess) return err;
   return hopper::launch_pdl(adaptor_kernel, dim3(p.blocks), kAdThreads,
                             p.smem, st, maps, a, scale, bias);

@@ -495,34 +495,14 @@ bool encode_level(CUtensorMap* map, const float* value, int N, int S, int H,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-constexpr int kDevices = 64;   // devices whose host-side facts are kept
-
-// the current device and its SM count, the count kept per device: a call
-// at one image is short enough that the host's work shows beside it
-int sm_count(int* dev) {
-  static int sms[kDevices] = {};
-  if (cudaGetDevice(dev) != cudaSuccess || *dev < 0) return 0;
-  if (*dev < kDevices && sms[*dev] > 0) return sms[*dev];
-  int n = 0;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, *dev) !=
-      cudaSuccess) {
-    return 0;
-  }
-  if (*dev < kDevices) sms[*dev] = n;
-  return n;
-}
-
 // launch, granting the kernel its shared memory once per device and size
 template <int V, int NL, int NP, int ST>
 cudaError_t launch(const Params& prm, const Maps& maps, unsigned blocks,
-                   int smem, int dev, cudaStream_t st) {
-  static int granted[kDevices] = {};
+                   int smem, cudaStream_t st) {
+  static hopper::SmemGrant granted;
   auto kernel = ms_deform_attn_kernel<V, NL, NP, ST>;
-  if (smem > 48 * 1024 && !(dev < kDevices && granted[dev] >= smem)) {
-    const cudaError_t err = hopper::grant_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    if (dev < kDevices) granted[dev] = smem;
-  }
+  const cudaError_t err = granted.ensure(kernel, smem);
+  if (err != cudaSuccess) return err;
   kernel<<<blocks, kThreads, smem, st>>>(prm, maps);
   return cudaGetLastError();
 }
@@ -557,8 +537,9 @@ extern "C" int prismer_ms_deform_attn(const float* value, const float* loc,
     start += hs[l] * ws[l];
   }
   if (start != S) return cudaErrorInvalidValue;
-  int dev = 0;
-  const int sms = sm_count(&dev);
+  // the SM count is kept per device: a call at one image is short enough
+  // that the host's work shows beside it
+  const int sms = hopper::sm_count();
   if (sms <= 0) return cudaErrorInvalidDevice;
   const bool aligned = reinterpret_cast<uintptr_t>(value) % 16 == 0;
   const Plan p = make_plan(hs, ws, N, S, Lq, H, D, L, P, sms, aligned);
@@ -597,10 +578,10 @@ extern "C" int prismer_ms_deform_attn(const float* value, const float* loc,
   // the pixel decoder's shapes: 3 levels of 4 points, the first two staged
   if (p.vec == 4 && L == 3 && P == 4 && p.staged == 3 &&
       1LL * S * H * D < (1LL << 31)) {
-    return launch<4, 3, 4, 3>(prm, maps, grid, p.smem, dev, st);
+    return launch<4, 3, 4, 3>(prm, maps, grid, p.smem, st);
   }
   if (p.vec == 4) {
-    return launch<4, 0, 0, -1>(prm, maps, grid, p.smem, dev, st);
+    return launch<4, 0, 0, -1>(prm, maps, grid, p.smem, st);
   }
-  return launch<1, 0, 0, -1>(prm, maps, grid, p.smem, dev, st);
+  return launch<1, 0, 0, -1>(prm, maps, grid, p.smem, st);
 }

@@ -6,12 +6,14 @@ table; the device expands `table[id_map]` (data/device.py). Row 255 is the
 background vector (the reference's dataset/utils.py:127-156); unused rows
 default to background. The tables stay numpy, so that forked loader
 workers never hold a CUDA tensor. The features are read by path from the
-JAX package's `prismer_tpu/assets/features.npz`.
+JAX package's `prismer_tpu/assets/features.npz`, or from the file that
+PRISMER_FEATURES names, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -26,7 +28,7 @@ FEATURE_DIM = 64
 
 class FeatureTables:
     def __init__(self, path: Optional[str] = None):
-        z = np.load(path or ASSET)
+        z = np.load(path or os.environ.get("PRISMER_FEATURES", ASSET))
         self.background = z["background"].astype(np.float32)
         self.coco = z["coco_features"].astype(np.float32)
         self.ade = z["ade_features"].astype(np.float32)

@@ -15,21 +15,27 @@ background (id maps), as the reference does (utils.py:84-110).
 
 Images and labels are uint8 numpy arrays. RGB images are told apart by
 their first bytes: JPEG goes through the port's decoder (native/), PNG
-through data/png.py; anything else raises. Label PNGs are converted to the
-mode the expert reads as PIL's `convert` would (data/pil_ops.py).
+through data/png.py; anything else raises. Label PNGs of every kind are
+converted to the mode the expert reads as PIL's `convert` would
+(data/png.py).
+
+PRISMER_LABEL_CACHE=<dir>, as in the JAX package: each label PNG's
+converted array is written once to <dir>/<absolute path>.npy (the JAX
+package's layout, so either package reads the other's entries) and later
+epochs load it instead of inflating the PNG (`_open_label_png`).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 import zipfile
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
 from prismer_tpu_torch import native
-from prismer_tpu_torch.data import pil_ops
 from prismer_tpu_torch.data.features import FeatureTables, get_feature_tables
 from prismer_tpu_torch.data.png import SIGNATURE, decode_png, read_png
 
@@ -55,12 +61,45 @@ def read_rgb(path: str) -> np.ndarray:
     if data.startswith(JPEG_MAGIC):
         return native.decode_jpeg(data)
     if data.startswith(SIGNATURE):
-        return pil_ops.to_mode(decode_png(data), "RGB")
+        return decode_png(data, "RGB")
     raise ValueError(f"{path}: neither a JPEG nor a PNG file")
 
 
+def _cache_npy_path(path: str) -> str:
+    root = os.environ["PRISMER_LABEL_CACHE"]
+    return os.path.join(root, os.path.abspath(path).lstrip(os.sep) + ".npy")
+
+
 def _open_label_png(path: str, mode: str) -> np.ndarray:
-    return pil_ops.to_mode(read_png(path), mode)
+    """The label PNG's pixels in `mode` ("L" or "RGB").
+
+    With PRISMER_LABEL_CACHE set, a cache entry is used when its mtime is at
+    or after the PNG's and its ndim is the mode's; an entry that cannot be
+    read falls through to a decode, which writes the entry anew through a
+    temporary file (named by process and thread: thread workers share a
+    pid) and `os.replace`. The variable is read at each call, so the
+    loader's workers need nothing passed to them."""
+    cache_root = os.environ.get("PRISMER_LABEL_CACHE")
+    if cache_root:
+        cp = _cache_npy_path(path)
+        try:
+            if os.stat(cp).st_mtime_ns >= os.stat(path).st_mtime_ns:
+                arr = np.load(cp)
+                if arr.ndim == (2 if mode == "L" else 3):
+                    return arr
+        except (OSError, ValueError, EOFError):
+            pass
+    arr = read_png(path, mode)
+    if cache_root:
+        try:
+            os.makedirs(os.path.dirname(cp), exist_ok=True)
+            tmp = f"{cp}.{os.getpid()}.{threading.get_ident()}.tmp"
+            with open(tmp, "wb") as f:
+                np.save(f, arr)
+            os.replace(tmp, cp)
+        except OSError:
+            pass
+    return arr
 
 
 def load_expert_labels(data_path: str, label_path: str, image_path: str,

@@ -11,9 +11,11 @@ Workers run numpy and the host decoder only: they touch no CUDA (the
 parent holds the device), and the feature tables they share are numpy.
 Forked workers get a fresh module-level `random` state each (Python
 reseeds it in every forked child), so they do not repeat one another's
-augmentation draws. `worker_type="auto"` forks processes when there are
-at least two workers and two cores, else uses threads (the decoder's
-foreign calls release the GIL, the numpy glue mostly does not).
+augmentation draws. `worker_type="auto"` takes PRISMER_WORKER_TYPE=thread
+or process when it is set, as the JAX package does; else it forks
+processes when there are at least two workers and two cores, and uses
+threads otherwise (the decoder's foreign calls release the GIL, the numpy
+glue mostly does not).
 """
 
 from __future__ import annotations
@@ -76,7 +78,14 @@ class DataLoader:
         self.drop_last = train if drop_last is None else drop_last
         if worker_type not in ("thread", "process", "auto"):
             raise ValueError(f"worker_type {worker_type!r}")
-        if worker_type == "auto":
+        env = os.environ.get("PRISMER_WORKER_TYPE")
+        if worker_type == "auto" and env:
+            # the JAX package's override of "auto"
+            if env not in ("thread", "process"):
+                raise ValueError(f"PRISMER_WORKER_TYPE={env!r}: thread or "
+                                 "process")
+            worker_type = env
+        elif worker_type == "auto":
             try:
                 cores = len(os.sched_getaffinity(0))
             except AttributeError:

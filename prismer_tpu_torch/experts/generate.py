@@ -55,7 +55,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from prismer_tpu_torch.data import pil_ops
 from prismer_tpu_torch.data.labels import read_rgb
 from prismer_tpu_torch.data.pil_warp import (resize_bilinear_u8,
                                              resize_nearest_u8)
@@ -229,7 +228,7 @@ def read_depth_label(path: str, size: int) -> np.ndarray:
     convert('L') and BILINEAR resize); zeros when the file is missing."""
     if not os.path.exists(path):
         return np.zeros((size, size), np.float32)
-    grey = pil_ops.to_mode(read_png(path), "L")
+    grey = read_png(path, "L")
     return resize_bilinear_u8(grey, (size, size)).astype(np.float32) / 255.0
 
 

@@ -203,21 +203,21 @@ def ms_deform_attn(value: torch.Tensor,
 
     for name, x in (("value", value), ("locations", sampling_locations),
                     ("weights", attention_weights)):
-        if (not x.is_cuda or x.device != value.device
-                or not x.is_contiguous()):
-            raise ValueError(f"ms_deform_attn: {name} is on {x.device}, "
-                             f"contiguous {x.is_contiguous()}; the kernel "
-                             f"takes contiguous tensors on {value.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"ms_deform_attn: {name} is not contiguous; the "
+                             f"kernel takes contiguous tensors")
     out = torch.empty((n, lq, h * d), dtype=torch.float32,
                       device=value.device)
     c_shapes, chunks, staged, smem = _launch_args(
         tuple(shapes), n, lq, h, d, p, _sm_count(value.device),
         value.data_ptr() % 16 == 0)
-    err = _build.kernels().prismer_ms_deform_attn(
-        value.data_ptr(), sampling_locations.data_ptr(),
-        attention_weights.data_ptr(), out.data_ptr(), c_shapes, n, s, lq, h,
-        d, nl, p, chunks, staged, smem,
-        torch.cuda.current_stream(value.device).cuda_stream)
+    with _build.launch_device("ms_deform_attn", value, sampling_locations,
+                              attention_weights):
+        err = _build.kernels().prismer_ms_deform_attn(
+            value.data_ptr(), sampling_locations.data_ptr(),
+            attention_weights.data_ptr(), out.data_ptr(), c_shapes, n, s, lq,
+            h, d, nl, p, chunks, staged, smem,
+            torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "ms_deform_attn")
     ms_deform_attn.launches += 1
     return out

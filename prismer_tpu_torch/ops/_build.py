@@ -8,23 +8,37 @@ repo root, at first use. The file name carries a hash of the sources
 library is never loaded. Nothing here
 runs at import time: the CPU tests import every module of the package, and
 only a kernel wrapper handed a CUDA tensor reaches this code.
+
+A process may launch on any of its cards and from any thread. Every wrapper
+launches inside `launch_device(name, *tensors)`, which checks that the
+kernel's tensors lie on one CUDA device and makes that device current for
+the launch (the C entries read it with `cudaGetDevice` and keep their
+shared-memory grants, SM counts and tensor-map caches per device, under a
+lock). `build()` and the first `kernels()` run under one lock, so threads
+that reach them together build and load the library once.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
+from typing import Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+# build() and the first kernels(); re-entrant, since kernels() builds
+_LOCK = threading.RLock()
+_LIB: Optional[ctypes.CDLL] = None
 
 
 def _nvcc() -> str:
@@ -54,12 +68,19 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels if the current sources have no library yet."""
+    with _LOCK:
+        return _build()
+
+
+def _build() -> Path:
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    tag = f"{out.stem}.{os.getpid()}"
+    # files named by process and thread: pytest workers and ranks build at
+    # once, and no two builders write one file
+    tag = f"{out.stem}.{os.getpid()}.{threading.get_ident()}"
     jobs = []
     for src in _sources():
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
@@ -72,7 +93,7 @@ def build() -> Path:
         if proc.returncode != 0:
             errors.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
                           f"\n{stdout}\n{stderr}")
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     if not errors:
         cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
@@ -93,9 +114,19 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 
 
-@functools.lru_cache(maxsize=None)
 def kernels() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built and loaded once, on first call."""
+    global _LIB
+    lib = _LIB
+    if lib is None:
+        with _LOCK:
+            if _LIB is None:
+                _LIB = _load()
+            lib = _LIB
+    return lib
+
+
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.prismer_flash_attention.argtypes = (
         [_P] * 6 + [_I] * 5 + [_L] * 13 + [_I, _I, _F, _P])
@@ -134,6 +165,18 @@ def kernels() -> ctypes.CDLL:
         [_P] * 4 + [_I] * 5 + [_L] * 6 + [_I, _I, _F, _P])
     lib.prismer_grouped_attention.restype = _I
     return lib
+
+
+def launch_device(name: str, *tensors) -> torch.cuda.device:
+    """The one CUDA device of a kernel's tensors (None entries skipped), as
+    a context that makes it current for the launch; ValueError naming the
+    devices when they are not all on one CUDA device."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name}: the kernel's tensors lie on "
+                         f"{sorted(map(str, devices))}; it takes them all on "
+                         "one CUDA device")
+    return torch.cuda.device(devices.pop())
 
 
 def check(err: int, name: str) -> None:

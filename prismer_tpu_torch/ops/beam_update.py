@@ -109,18 +109,16 @@ def beam_update(vals: torch.Tensor, beam: torch.Tensor, tok: torch.Tensor,
                                 pad_token_id=pad_token_id)
     from prismer_tpu_torch.ops import _build
 
-    dev = vals.get_device()
     for i, (x, dt, shape) in enumerate((
             (vals, torch.float32, (b, kk)), (beam, torch.int32, (b, kk)),
             (tok, torch.int32, (b, kk)), (alive_seqs, torch.int32, (n, t)),
             (alive_scores, torch.float32, (b, k)),
             (finished_seqs, torch.int32, (n, t)),
             (finished_scores, torch.float32, (b, k)))):
-        if (x.dtype != dt or x.get_device() != dev or x.shape != shape
-                or not x.is_contiguous()):
+        if x.dtype != dt or x.shape != shape or not x.is_contiguous():
             raise ValueError(f"beam_update: input {i} is {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}; kernel takes "
-                             f"contiguous CUDA {dt} {shape}")
+                             f"{tuple(x.shape)}; kernel takes contiguous "
+                             f"{dt} {shape}")
     if k > MAX_BEAMS:
         raise ValueError(f"beam_update: kernel takes K <= {MAX_BEAMS}, got "
                          f"{k}")
@@ -135,14 +133,16 @@ def beam_update(vals: torch.Tensor, beam: torch.Tensor, tok: torch.Tensor,
                                                    (bk4, k, 1)).unbind(0)
     aseq, fseq = buf.as_strided((2, n, t), (n * t, t, 1), 4 * bk4).unbind(0)
     ascore, fscore = ascore.view(torch.float32), fscore.view(torch.float32)
-    err = _build.kernels().prismer_beam_update(
-        vals.data_ptr(), beam.data_ptr(), tok.data_ptr(),
-        alive_seqs.data_ptr(), alive_scores.data_ptr(),
-        finished_seqs.data_ptr(), finished_scores.data_ptr(),
-        aseq.data_ptr(), ascore.data_ptr(), fseq.data_ptr(),
-        fscore.data_ptr(), new_tok.data_ptr(), flat.data_ptr(), b, k, t,
-        index, pen, eos_token_id, pad_token_id,
-        torch._C._cuda_getCurrentRawStream(dev))
+    with _build.launch_device("beam_update", vals, beam, tok, alive_seqs,
+                              alive_scores, finished_seqs, finished_scores):
+        err = _build.kernels().prismer_beam_update(
+            vals.data_ptr(), beam.data_ptr(), tok.data_ptr(),
+            alive_seqs.data_ptr(), alive_scores.data_ptr(),
+            finished_seqs.data_ptr(), finished_scores.data_ptr(),
+            aseq.data_ptr(), ascore.data_ptr(), fseq.data_ptr(),
+            fscore.data_ptr(), new_tok.data_ptr(), flat.data_ptr(), b, k, t,
+            index, pen, eos_token_id, pad_token_id,
+            torch._C._cuda_getCurrentRawStream(vals.get_device()))
     _build.check(err, "beam_update")
     beam_update.launches += 1
     return aseq, ascore, fseq, fscore, new_tok, flat

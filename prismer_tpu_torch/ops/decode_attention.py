@@ -156,10 +156,9 @@ def _launch(q, k, v, mode: str) -> torch.Tensor:
                          f"{MAX_BLOCK_ROWS}; got {q.dtype}, Dh {dh}, Q {nq}, "
                          f"B * H {b * h}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"grouped attention: {name} is {t.dtype} on "
-                             f"{t.device}; kernel takes {q.dtype} on "
-                             f"{q.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"grouped attention: {name} is {t.dtype}; "
+                             f"kernel takes {q.dtype}")
     if not q.is_contiguous() or q.data_ptr() % 16:
         raise ValueError("grouped attention: q must be contiguous and "
                          "16-byte aligned")
@@ -172,11 +171,12 @@ def _launch(q, k, v, mode: str) -> torch.Tensor:
                              f"multiples)")
     split_plan(k.shape[2], nq, q.dtype, mode)
     out = torch.empty_like(q)
-    err = _build.kernels().prismer_grouped_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, nq,
-        k.shape[2], dh, *k.stride()[:3], *v.stride()[:3], MODES.index(mode),
-        _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with _build.launch_device("grouped attention", q, k, v):
+        err = _build.kernels().prismer_grouped_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            nq, k.shape[2], dh, *k.stride()[:3], *v.stride()[:3],
+            MODES.index(mode), _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, f"grouped attention ({mode})")
     return out
 

@@ -68,8 +68,6 @@ def _reference_with_lse(q, k, v, key_mask=None, causal=False
 
 def _check(q, k, v, name):
     for t in (q, k, v):
-        if not t.is_cuda:
-            raise ValueError(f"{name}: mixed devices")
         if t.dtype not in _DTYPE_CODES or t.dtype != q.dtype:
             raise ValueError(f"{name}: dtype {t.dtype} (kernel takes one of "
                              f"{list(_DTYPE_CODES)}, all equal)")
@@ -95,16 +93,18 @@ def _launch(q4, k4, v4, o4, key_mask, causal, name) -> torch.Tensor:
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q4.device)
     mask_ptr, mask_sb = None, 0
     if key_mask is not None:
-        if key_mask.shape != (b, lk) or not key_mask.is_cuda:
+        if key_mask.shape != (b, lk):
             raise ValueError(f"{name}: key_mask {tuple(key_mask.shape)}")
         key_mask = key_mask.to(torch.int32).contiguous()
         mask_ptr, mask_sb = key_mask.data_ptr(), key_mask.stride(0)
-    err = _build.kernels().prismer_flash_attention(
-        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
-        lse.data_ptr(), mask_ptr, b, h, lq, lk, dh,
-        *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
-        *o4.stride()[:3], mask_sb, int(causal), _DTYPE_CODES[q4.dtype],
-        1.0 / math.sqrt(dh), torch.cuda.current_stream(q4.device).cuda_stream)
+    with _build.launch_device(name, q4, k4, v4, o4, key_mask):
+        err = _build.kernels().prismer_flash_attention(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+            lse.data_ptr(), mask_ptr, b, h, lq, lk, dh,
+            *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
+            *o4.stride()[:3], mask_sb, int(causal), _DTYPE_CODES[q4.dtype],
+            1.0 / math.sqrt(dh),
+            torch.cuda.current_stream(q4.device).cuda_stream)
     _build.check(err, name)
     return lse
 
@@ -219,9 +219,9 @@ def _launch_bwd(fn_name, q, k, v, dout, lse, delta, key_mask, causal, outs):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     for t in (q, k, v, dout, *outs):
-        if not t.is_cuda or t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{fn_name}: tensors must share q's device and "
-                             f"dtype {q.dtype}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{fn_name}: tensors must share q's dtype "
+                             f"{q.dtype}")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{fn_name}: dtype {q.dtype} (kernel takes one of "
                          f"{list(_DTYPE_CODES)})")
@@ -231,9 +231,9 @@ def _launch_bwd(fn_name, q, k, v, dout, lse, delta, key_mask, causal, outs):
                          f"v {tuple(v.shape)} dout {tuple(dout.shape)}")
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.shape != (b, h, lq) or t.dtype != torch.float32
-                or not t.is_contiguous() or t.device != q.device):
+                or not t.is_contiguous()):
             raise ValueError(f"{fn_name}: {name} must be contiguous fp32 "
-                             f"(B, H, Lq) on {q.device}")
+                             f"(B, H, Lq)")
     for t in outs:
         if _kernel_layout(t) is not t:
             raise ValueError(f"{fn_name}: cannot write an output view with "
@@ -242,19 +242,21 @@ def _launch_bwd(fn_name, q, k, v, dout, lse, delta, key_mask, causal, outs):
     q, k, v, dout = (_kernel_layout(t) for t in (q, k, v, dout))
     mask_ptr, mask_sb = None, 0
     if key_mask is not None:
-        if key_mask.shape != (b, lk) or key_mask.device != q.device:
+        if key_mask.shape != (b, lk):
             raise ValueError(f"{fn_name}: key_mask {tuple(key_mask.shape)}")
         key_mask = key_mask.to(torch.int32).contiguous()
         mask_ptr, mask_sb = key_mask.data_ptr(), key_mask.stride(0)
     full = (outs * 3)[:3] if len(outs) == 1 else (outs[0], outs[0], outs[1])
     strides = [s for t in (q, k, v, dout, *full) for s in t.stride()[:3]]
-    fn = getattr(_build.kernels(), fn_name)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), mask_ptr,
-             *(t.data_ptr() for t in outs), b, h, lq, lk, dh,
-             (ctypes.c_int64 * 21)(*strides), mask_sb, int(causal),
-             _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    with _build.launch_device(fn_name, q, k, v, dout, lse, delta, key_mask,
+                              *outs):
+        fn = getattr(_build.kernels(), fn_name)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), mask_ptr,
+                 *(t.data_ptr() for t in outs), b, h, lq, lk, dh,
+                 (ctypes.c_int64 * 21)(*strides), mask_sb, int(causal),
+                 _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, fn_name)
 
 

@@ -173,11 +173,9 @@ def _check(name, h2, emb, bias, lab, *rows):
                          f"{h2.dtype}, D = {d}")
     for t, dt in ((h2, h2.dtype), (emb, h2.dtype), (bias, torch.float32),
                   (lab, torch.int32), *((r, torch.float32) for r in rows)):
-        if (not t.is_cuda or t.device != h2.device or t.dtype != dt
-                or not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(f"{name}: a {t.dtype} {tuple(t.shape)} operand "
-                             f"on {t.device}; kernel takes contiguous 16-byte "
-                             f"aligned {dt} on {h2.device}")
+        if t.dtype != dt or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: a {t.dtype} {tuple(t.shape)} operand; "
+                             f"kernel takes contiguous 16-byte aligned {dt}")
 
 
 def ce_stats(h2: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
@@ -197,11 +195,12 @@ def ce_stats(h2: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
     work = torch.empty(4 * n * ntiles, dtype=torch.float32, device=h2.device)
     xlab, sumx, lse = (torch.empty(n, dtype=torch.float32, device=h2.device)
                        for _ in range(3))
-    err = _build.kernels().prismer_ce_stats(
-        h2.data_ptr(), emb.data_ptr(), bias.data_ptr(), lab.data_ptr(),
-        work.data_ptr(), xlab.data_ptr(), sumx.data_ptr(), lse.data_ptr(), n,
-        d, v, ntiles, _DTYPE_CODES[h2.dtype],
-        torch.cuda.current_stream(h2.device).cuda_stream)
+    with _build.launch_device("ce_stats", h2, emb, bias, lab):
+        err = _build.kernels().prismer_ce_stats(
+            h2.data_ptr(), emb.data_ptr(), bias.data_ptr(), lab.data_ptr(),
+            work.data_ptr(), xlab.data_ptr(), sumx.data_ptr(),
+            lse.data_ptr(), n, d, v, ntiles, _DTYPE_CODES[h2.dtype],
+            torch.cuda.current_stream(h2.device).cuda_stream)
     _build.check(err, "ce_stats")
     ce_stats.launches += 1
     return xlab, sumx, lse
@@ -235,12 +234,13 @@ def ce_grads(h2: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
     dh = torch.empty_like(h2)
     demb = torch.empty_like(emb)
     dbias = torch.empty(v, dtype=torch.float32, device=h2.device)
-    err = _build.kernels().prismer_ce_grads(
-        h2.data_ptr(), emb.data_ptr(), bias.data_ptr(), lab.data_ptr(),
-        gv.data_ptr(), lse.data_ptr(), work.data_ptr(), dh.data_ptr(),
-        demb.data_ptr(), dbias.data_ptr(), n, d, v, ntiles, groups,
-        smoothing / v, 1.0 - smoothing, _DTYPE_CODES[h2.dtype],
-        torch.cuda.current_stream(h2.device).cuda_stream)
+    with _build.launch_device("ce_grads", h2, emb, bias, lab, gv, lse):
+        err = _build.kernels().prismer_ce_grads(
+            h2.data_ptr(), emb.data_ptr(), bias.data_ptr(), lab.data_ptr(),
+            gv.data_ptr(), lse.data_ptr(), work.data_ptr(), dh.data_ptr(),
+            demb.data_ptr(), dbias.data_ptr(), n, d, v, ntiles, groups,
+            smoothing / v, 1.0 - smoothing, _DTYPE_CODES[h2.dtype],
+            torch.cuda.current_stream(h2.device).cuda_stream)
     _build.check(err, "ce_grads")
     ce_grads.launches += 1
     return dh, demb, dbias

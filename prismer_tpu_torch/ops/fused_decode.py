@@ -424,12 +424,10 @@ def fused_decode_step(hidden0: torch.Tensor, w_all: torch.Tensor,
     if flat_beam is not None:
         want.append(("flat_beam", flat_beam, torch.int32))
     for name, x, dt in want:
-        if (not x.is_cuda or x.device != hidden0.device or x.dtype != dt
-                or not x.is_contiguous() or x.data_ptr() % 16):
+        if x.dtype != dt or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"fused_decode_step: {name} is {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}; kernel takes "
-                             f"contiguous 16-byte aligned {dt} on "
-                             f"{hidden0.device}")
+                             f"{tuple(x.shape)}; kernel takes contiguous "
+                             f"16-byte aligned {dt}")
     if tuple(out_k.shape) != tuple(self_k.shape) or \
             tuple(out_v.shape) != tuple(self_k.shape) or \
             tuple(self_v.shape) != tuple(self_k.shape) or \
@@ -441,18 +439,20 @@ def fused_decode_step(hidden0: torch.Tensor, w_all: torch.Tensor,
     k_new = torch.empty((nl, n, d), dtype=dtype, device=dev)
     v_new = torch.empty_like(k_new)
     work = torch.empty(n * (7 * d + max(d, f)), dtype=dtype, device=dev)
-    err = _build.kernels().prismer_fused_decode_step(
-        hidden0.data_ptr(), w_all.data_ptr(), b_all.data_ptr(),
-        self_k.data_ptr(), self_v.data_ptr(), out_k.data_ptr(),
-        out_v.data_ptr(),
-        None if flat_beam is None else flat_beam.data_ptr(),
-        key_mask.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(),
-        cross_ks.data_ptr() if quant else None,
-        cross_vs.data_ptr() if quant else None,
-        hidden_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        work.data_ptr(), n, b, d, heads, f, nl, nlc, t, l_enc, index,
-        _DTYPE_CODES[dtype], eps, 1.0 / math.sqrt(d // heads),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with _build.launch_device("fused_decode_step",
+                              *(x for _, x, _ in want)):
+        err = _build.kernels().prismer_fused_decode_step(
+            hidden0.data_ptr(), w_all.data_ptr(), b_all.data_ptr(),
+            self_k.data_ptr(), self_v.data_ptr(), out_k.data_ptr(),
+            out_v.data_ptr(),
+            None if flat_beam is None else flat_beam.data_ptr(),
+            key_mask.data_ptr(), cross_k.data_ptr(), cross_v.data_ptr(),
+            cross_ks.data_ptr() if quant else None,
+            cross_vs.data_ptr() if quant else None,
+            hidden_out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            work.data_ptr(), n, b, d, heads, f, nl, nlc, t, l_enc, index,
+            _DTYPE_CODES[dtype], eps, 1.0 / math.sqrt(d // heads),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_decode_step")
     if quant:
         fused_decode_step.int8_launches += 1

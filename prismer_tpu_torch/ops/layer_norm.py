@@ -45,20 +45,21 @@ def width_ok(d: int, multiple: int) -> bool:
 def check_rows(name: str, x2d: torch.Tensor, scale: torch.Tensor,
                bias: torch.Tensor, multiple: int) -> None:
     """Raise unless the kernels take x2d (R, D) and its LayerNorm affine:
-    fp32 or bf16, `width_ok(D, multiple)`, contiguous, 16-byte aligned, all
-    on x2d's device (scale and bias of any float dtype, (D,))."""
+    fp32 or bf16, `width_ok(D, multiple)`, contiguous, 16-byte aligned
+    (scale and bias of any float dtype, (D,)). The launch's device guard
+    (`_build.launch_device`) holds them to one device."""
     r, d = x2d.shape
     if x2d.dtype not in _DTYPE_CODES or not width_ok(d, multiple) or r < 1:
         raise ValueError(f"{name}: kernel takes {list(_DTYPE_CODES)} rows of "
                          f"D <= {MAX_DIM}, a multiple of {multiple}; got "
                          f"{x2d.dtype} ({r}, {d})")
     for what, t in (("x", x2d), ("scale", scale), ("bias", bias)):
-        if (not t.is_cuda or t.device != x2d.device or not t.is_contiguous()
-                or t.data_ptr() % 16 or not t.is_floating_point()
+        if (not t.is_contiguous() or t.data_ptr() % 16
+                or not t.is_floating_point()
                 or (t is not x2d and tuple(t.shape) != (d,))):
-            raise ValueError(f"{name}: {what} is {t.dtype} {tuple(t.shape)} "
-                             f"on {t.device}; kernel takes contiguous 16-byte "
-                             f"aligned tensors on {x2d.device}")
+            raise ValueError(f"{name}: {what} is {t.dtype} {tuple(t.shape)}; "
+                             f"kernel takes contiguous 16-byte aligned "
+                             f"tensors")
 
 
 def layer_norm_forward(x2d: torch.Tensor, scale: torch.Tensor,
@@ -73,10 +74,11 @@ def layer_norm_forward(x2d: torch.Tensor, scale: torch.Tensor,
     check_rows("fused_layer_norm", x2d, scale, bias, 8)
     r, d = x2d.shape
     out = torch.empty_like(x2d)
-    err = _build.kernels().prismer_layer_norm(
-        x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), r,
-        d, float(eps), _DTYPE_CODES[x2d.dtype],
-        torch.cuda.current_stream(x2d.device).cuda_stream)
+    with _build.launch_device("fused_layer_norm", x2d, scale, bias):
+        err = _build.kernels().prismer_layer_norm(
+            x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), r, d, float(eps), _DTYPE_CODES[x2d.dtype],
+            torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(err, "fused_layer_norm")
     fused_layer_norm.launches += 1
     return out

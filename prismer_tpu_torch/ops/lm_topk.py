@@ -127,15 +127,13 @@ def lm_topk(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
                          f"{MAX_KK}, beams <= {MAX_BEAMS}, D a multiple of 8 "
                          f"whose feature rows fit shared memory; got {dtype}, "
                          f"{kk}, {beams}, {d}")
-    dev = h.get_device()
     for name, x, dt in (("h", h, dtype), ("emb", emb, dtype),
                         ("bias", bias, torch.float32),
                         ("alive_scores", alive_scores, torch.float32)):
-        if (x.dtype != dt or x.get_device() != dev or not x.is_contiguous()
-                or x.data_ptr() % 16):
+        if x.dtype != dt or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"lm_topk: {name} is {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}; kernel takes "
-                             f"contiguous 16-byte aligned {dt} on {h.device}")
+                             f"{tuple(x.shape)}; kernel takes contiguous "
+                             f"16-byte aligned {dt}")
     # one allocation: the (N, V) logits and the (N, tiles) partials, then
     # the outputs (their int32 parts viewed from the same floats)
     tiles = -(-v // TILE_V)
@@ -144,11 +142,13 @@ def lm_topk(h: torch.Tensor, emb: torch.Tensor, bias: torch.Tensor,
                       device=h.device)
     vals, beam, tok = buf[scratch:].view(3, b, kk).unbind(0)
     beam, tok = beam.view(torch.int32), tok.view(torch.int32)
-    err = _build.kernels().prismer_lm_topk(
-        h.data_ptr(), emb.data_ptr(), bias.data_ptr(), alive_scores.data_ptr(),
-        buf.data_ptr(), vals.data_ptr(), beam.data_ptr(), tok.data_ptr(),
-        n, b, d, v, tiles, kk, int(bool(mask_eos)), eos_token_id,
-        _DTYPE_CODES[dtype], torch._C._cuda_getCurrentRawStream(dev))
+    with _build.launch_device("lm_topk", h, emb, bias, alive_scores):
+        err = _build.kernels().prismer_lm_topk(
+            h.data_ptr(), emb.data_ptr(), bias.data_ptr(),
+            alive_scores.data_ptr(), buf.data_ptr(), vals.data_ptr(),
+            beam.data_ptr(), tok.data_ptr(), n, b, d, v, tiles, kk,
+            int(bool(mask_eos)), eos_token_id, _DTYPE_CODES[dtype],
+            torch._C._cuda_getCurrentRawStream(h.get_device()))
     _build.check(err, "lm_topk")
     lm_topk.launches += 1
     return vals, beam, tok

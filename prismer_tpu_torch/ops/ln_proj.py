@@ -189,11 +189,11 @@ def adaptor_reference(x2d: torch.Tensor, scale: torch.Tensor,
 
 def _check_params(name, x2d, params):
     for t in params:
-        if (not t.is_cuda or t.device != x2d.device or t.dtype != x2d.dtype
-                or not t.is_contiguous() or t.data_ptr() % 16):
+        if (t.dtype != x2d.dtype or not t.is_contiguous()
+                or t.data_ptr() % 16):
             raise ValueError(f"{name}: a {t.dtype} {tuple(t.shape)} weight or "
-                             f"bias on {t.device}; kernel takes contiguous "
-                             f"16-byte aligned {x2d.dtype} on {x2d.device}")
+                             f"bias; kernel takes contiguous 16-byte aligned "
+                             f"{x2d.dtype}")
 
 
 def _ln_proj_forward(x2d, scale, bias, weights, biases, activation, eps):
@@ -222,14 +222,16 @@ def _ln_proj_forward(x2d, scale, bias, weights, biases, activation, eps):
     plan = ln_proj_plan(r, d, tuple(fs), x2d.dtype, _sm_count(x2d.device))
     stats = _stats_scratch(x2d, plan)
     pad = [None] * (MAX_OUTPUTS - n)
-    err = _build.kernels().prismer_ln_proj(
-        x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        *(t.data_ptr() for t in weights), *pad,
-        *(t.data_ptr() for t in biases), *pad,
-        *(t.data_ptr() for t in outs), *pad, *fs, *[0] * len(pad), n, r, d,
-        float(eps), _ACT_CODES[activation], _DTYPE_CODES[x2d.dtype],
-        None if stats is None else stats.data_ptr(), plan["blocks"],
-        plan["smem"], torch.cuda.current_stream(x2d.device).cuda_stream)
+    with _build.launch_device("ln_proj", x2d, scale, bias, *weights,
+                              *biases):
+        err = _build.kernels().prismer_ln_proj(
+            x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            *(t.data_ptr() for t in weights), *pad,
+            *(t.data_ptr() for t in biases), *pad,
+            *(t.data_ptr() for t in outs), *pad, *fs, *[0] * len(pad), n, r,
+            d, float(eps), _ACT_CODES[activation], _DTYPE_CODES[x2d.dtype],
+            None if stats is None else stats.data_ptr(), plan["blocks"],
+            plan["smem"], torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(err, "ln_proj")
     ln_proj.launches += 1
     return tuple(outs)
@@ -251,12 +253,14 @@ def _adaptor_forward(x2d, scale, bias, wd, bd, wu, bu, eps):
     out = torch.empty_like(x2d)
     plan = adaptor_plan(r, d, x2d.dtype)
     stats = _stats_scratch(x2d, plan)
-    err = _build.kernels().prismer_adaptor_fused(
-        x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(), wd.data_ptr(),
-        bd.data_ptr(), wu.data_ptr(), bu.data_ptr(), out.data_ptr(), r, d,
-        float(eps), _DTYPE_CODES[x2d.dtype],
-        None if stats is None else stats.data_ptr(), plan["blocks"],
-        plan["smem"], torch.cuda.current_stream(x2d.device).cuda_stream)
+    with _build.launch_device("adaptor_fused", x2d, scale, bias, wd, bd, wu,
+                              bu):
+        err = _build.kernels().prismer_adaptor_fused(
+            x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(), wd.data_ptr(),
+            bd.data_ptr(), wu.data_ptr(), bu.data_ptr(), out.data_ptr(), r, d,
+            float(eps), _DTYPE_CODES[x2d.dtype],
+            None if stats is None else stats.data_ptr(), plan["blocks"],
+            plan["smem"], torch.cuda.current_stream(x2d.device).cuda_stream)
     _build.check(err, "adaptor_fused")
     adaptor_fused.launches += 1
     return out

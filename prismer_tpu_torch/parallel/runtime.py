@@ -8,10 +8,10 @@ the group: NCCL for CUDA, gloo for the CPU. `spawn` starts ranks on one
 machine over a `FileStore` in a directory (no port is opened), for tests
 and the smoke run.
 
-Ranks are processes, never threads: the kernels' tensor-map cache
-(csrc/hopper.cuh `cached_bf16_map`) is one array per process with no lock,
-so `init` refuses a second group in a process and any thread but the main
-one.
+Ranks are processes, never threads: a process holds one group and one
+current card, so `init` refuses a second group in a process and any thread
+but the main one. (The kernels themselves launch on any card and from any
+thread: ops/_build.py `launch_device`.)
 """
 
 from __future__ import annotations
@@ -49,8 +49,8 @@ def init(device="cuda", backend: Optional[str] = None,
     process takes card `local_rank` first."""
     if threading.current_thread() is not threading.main_thread():
         raise RuntimeError("runtime.init from a thread other than the main "
-                           "one: ranks are processes (the kernels' "
-                           "tensor-map cache is per process, unlocked)")
+                           "one: a rank is a process, with one process "
+                           "group and one card made current")
     if dist.is_initialized():
         raise RuntimeError("a process group is already open in this "
                            "process: one rank per process")

@@ -40,8 +40,10 @@ generator pins fp32 itself), which must launch the deformable-attention
 kernel 18 times and write every label map at its image's size. The data
 path from files on disk (ROADMAP §1 items 5-6) sits between the train and
 the segmentation phases: "jpeg" (the port's C++ JPEG decoder, built with
-g++, decodes every fixture of tests/data/jpeg to the sha256 that Pillow
-gave, and the host's median decode ms of each 640x480 fixture), "data" (a
+g++, decodes every fixture of tests/data/jpeg (Huffman, arithmetic,
+lossless, smoothed) to the sha256 that Pillow gave, through decode_jpeg and
+the loader's read_rgb, and the host's median decode ms of each 640x480
+fixture), "data" (a
 COCO-Karpathy tree of 64 train and 16 test records made from the 640x480
 fixtures, with label PNGs for the six experts and their sidecars, read by
 `Caption(train=True)` at 480 px through `create_loader` at batch 16 with 1
@@ -3327,42 +3329,61 @@ def host_cpu() -> str:
     return f"CPU {name}, {len(os.sched_getaffinity(0))} cores"
 
 
-def big_fixtures():
-    """The 640 x 480 JPEG fixtures, by name."""
+def big_fixtures(every_kind: bool = False):
+    """The 640 x 480 JPEG fixtures, by name: the whole Huffman files that
+    the data trees are made of, or with `every_kind` also the arithmetic
+    twins and the cut progressive file."""
     exp = json.loads((JPEG_FIXTURES / "expected.json").read_text())["files"]
-    return sorted(n for n, e in exp.items() if e["shape"] == [480, 640, 3])
+    return sorted(n for n, e in exp.items() if e["shape"] == [480, 640, 3]
+                  and (every_kind or (e["kind"] == "huffman"
+                                      and not e["smoothed"])))
 
 
 def phase_jpeg(results, card: str):
     """The port's host JPEG decoder: built with g++ from the checkout, every
-    fixture decoded to the sha256 Pillow gave (tests/data/jpeg/
-    expected.json, written where Pillow is), then the median decode ms of
-    each 640 x 480 fixture over JPEG_RUNS runs on the host's CPU."""
+    fixture (Huffman, arithmetic-coded, lossless, progressive files cut
+    short that libjpeg smooths) decoded by `native.decode_jpeg` and by the
+    loader's `data.labels.read_rgb` to the sha256 Pillow gave (tests/data/
+    jpeg/expected.json, written where Pillow is), then the median decode ms
+    of each 640 x 480 fixture over JPEG_RUNS runs on the host's CPU: the
+    Huffman files, the arithmetic twins beside their Huffman sources and
+    the cut progressive file."""
+    import collections
     import hashlib
 
     from prismer_tpu_torch import native
+    from prismer_tpu_torch.data.labels import read_rgb
     t0 = time.perf_counter()
     lib = native.build()
     log(f"  built {lib.relative_to(ROOT)} with g++ in "
         f"{time.perf_counter() - t0:.1f} s")
     expected = json.loads((JPEG_FIXTURES / "expected.json").read_text())
     for name, e in sorted(expected["files"].items()):
-        px = native.decode_jpeg((JPEG_FIXTURES / name).read_bytes())
-        digest = hashlib.sha256(px.tobytes()).hexdigest()
-        expect(list(px.shape) == e["shape"] and digest == e["sha256"],
-               f"{name}: {px.shape} sha256 {digest[:12]}, Pillow gave "
-               f"{e['shape']} {e['sha256'][:12]}")
-    log(f"  {len(expected['files'])} fixtures decode to the pixels of Pillow "
-        f"{expected['pillow']} / libjpeg-turbo {expected['libjpeg_turbo']} "
+        path = JPEG_FIXTURES / name
+        for how, px in (("decode_jpeg", native.decode_jpeg(path.read_bytes())),
+                        ("read_rgb", read_rgb(str(path)))):
+            digest = hashlib.sha256(px.tobytes()).hexdigest()
+            expect(list(px.shape) == e["shape"] and digest == e["sha256"],
+                   f"{name} ({how}): {px.shape} sha256 {digest[:12]}, Pillow "
+                   f"gave {e['shape']} {e['sha256'][:12]}")
+    kinds = collections.Counter(e["kind"] for e in expected["files"].values())
+    kinds["smoothed"] = sum(e["smoothed"] for e in expected["files"].values())
+    log(f"  {len(expected['files'])} fixtures ({kinds['huffman']} Huffman, "
+        f"{kinds['arithmetic']} arithmetic, {kinds['lossless']} lossless; "
+        f"{kinds['smoothed']} of them smoothed) decode to the pixels of "
+        f"Pillow {expected['pillow']} / libjpeg-turbo "
+        f"{expected['libjpeg_turbo']} through decode_jpeg and read_rgb "
         f"(sha256 equal)")
-    for name in big_fixtures():
+    for name in big_fixtures(every_kind=True):
+        source = expected["files"][name].get("source")
         data = (JPEG_FIXTURES / name).read_bytes()
         times = []
         for _ in range(JPEG_RUNS):
             t0 = time.perf_counter()
             native.decode_jpeg(data)
             times.append((time.perf_counter() - t0) * 1e3)
-        log(f"  decode {name} ({len(data)} bytes): median "
+        beside = f", twin of {source}" if source else ""
+        log(f"  decode {name} ({len(data)} bytes{beside}): median "
             f"{statistics.median(times):.2f} ms, min {min(times):.2f} ms over "
             f"{JPEG_RUNS} runs ({host_cpu()}; {card})")
 

@@ -4,8 +4,13 @@ ctypes.
 The machine with the card has no PIL, and the datasets (COCO, VQAv2,
 CC3M / CC12M, ImageNet) are JPEG. `decode_jpeg` returns what Pillow's
 `Image.open(f).convert("RGB")` returns, bit for bit, with
-`ImageFile.LOAD_TRUNCATED_IMAGES = True` (see the note at the top of
-`jpeg.cpp` for what is replicated and what is refused).
+`ImageFile.LOAD_TRUNCATED_IMAGES = True`, for every JPEG that Pillow
+decodes: baseline, progressive, arithmetic-coded and lossless files, and
+files cut short (a progressive one smoothed as libjpeg smooths it, an
+arithmetic one with the rows Pillow keeps when libjpeg stops). Where
+Pillow yields no pixels (12-bit, hierarchical, lossless arithmetic, 2
+components, ...) it raises `ValueError` naming the feature; the note at the
+top of `jpeg.cpp` lists what is replicated and what is refused.
 
 The library is built with `g++ -O3` at first use into `build/host/` at the
 repo root. Its file name carries a hash of the source and the flags, so an

@@ -269,17 +269,19 @@ def test_nearest_resize_equals_pil(src, dst):
 
 
 def test_jpeg_input_raises(tmp_path, monkeypatch):
-    """JPEG input is read by the port's decoder; a kind it refuses
-    (arithmetic coding: a baseline file whose SOF0 says SOF9) raises before
-    anything is written."""
+    """JPEG input is read by the port's decoder; a kind it refuses, as
+    Pillow does (12-bit samples: a baseline file whose SOF says 12), raises
+    before anything is written."""
     os.makedirs(tmp_path / "data" / "a")
     buf = io.BytesIO()
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, "JPEG")
-    data = buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1)
+    data = buf.getvalue()
+    sof = data.index(b"\xff\xc0")
+    data = data[:sof + 4] + b"\x0c" + data[sof + 5:]
     (tmp_path / "data" / "a" / "x.jpg").write_bytes(data)
     monkeypatch.setattr(port_generate, "load_expert_model",
                         lambda task, image_size, device: (None, None))
-    with pytest.raises(ValueError, match="arithmetic-coded JPEG"):
+    with pytest.raises(ValueError, match="12-bit JPEG samples"):
         port_generate.run_batched(_args(tmp_path, tmp_path / "out"),
                                        "seg_coco")
     assert not (tmp_path / "out" / "seg_coco").exists()

@@ -65,25 +65,33 @@ batch 1, then `demo_vis`), each with ms/step, images/s, eval s and the
 launches (every training kernel in the train steps, kernels 1-5 in
 caption eval), and after "segment", "segment jpeg"
 (the generator over 4 fixtures as .jpg and the same pixels as PNG: equal
-label maps), then the other five label experts: "experts parity" (each
-of DPT-hybrid, NNET, DexiNed, UniDet and CharNet at full width from the
-seed, fp32 at 480 px, card against CPU, UniDet stage by stage, and the
-CLIP text encoder at ViT-L/14's text width), "experts generate" (the
-generator's depth, normal, edge, obj_detection, ocr_detection and
-seg_coco tasks over 16 images, every label file where `data.labels` reads
-it, images/s, device and host time, peak memory) and "experts demo"
-(`cli.demo` at BASE captioning those images from those labels, kernels
-1-5 launched). Then "multi-gpu" (the parallel/ package at NCCL world
-size 1 and over two gloo ranks on the card), "devices" (with two or more
-cards: captioning and a train step on cuda:1 from a process whose current
-device is 0 equal cuda:0's, requests alternating between the cards; on
-one card it logs that it did not run), "threads" (two threads on streams
+label maps), "image formats" (every fixture of tests/data/webp, gif and bmp
+decodes through decode_webp / decode_gif / bmp.decode_bmp, in RGB and in
+Pillow's own mode, and through read_rgb, to the sha256 Pillow gave; the
+host's median decode ms of each 640x480 kind beside the JPEG's; then the
+generator over the 640x480 WebP, GIF and BMP fixtures under .jpg names and
+over their PNG twins, one model, equal label maps with kernel 10 launched,
+and one BASE bf16 beam-3 caption batch of those records through
+load_expert_labels, experts_to_device and build_generate_fn, equal ids from
+both trees with kernels 1-5 launched), then the other five label experts:
+"experts parity" (each of DPT-hybrid, NNET, DexiNed, UniDet and CharNet at
+full width from the seed, fp32 at 480 px, card against CPU, UniDet stage by
+stage, and the CLIP text encoder at ViT-L/14's text width), "experts
+generate" (the generator's depth, normal, edge, obj_detection,
+ocr_detection and seg_coco tasks over 16 images, every label file where
+`data.labels` reads it, images/s, device and host time, peak memory) and
+"experts demo" (`cli.demo` at BASE captioning those images from those
+labels, kernels 1-5 launched). Then "multi-gpu" (the parallel/ package at
+NCCL world size 1 and over two gloo ranks on the card), "devices" (with two
+or more cards: captioning and a train step on cuda:1 from a process whose
+current device is 0 equal cuda:0's, requests alternating between the cards;
+on one card it logs that it did not run), "threads" (two threads on streams
 of their own serve, then train, at once: ids and losses equal a serial
 run), "png" (every fixture of tests/data/png decodes to the sha256 Pillow
-gave) and "label cache" (PRISMER_LABEL_CACHE: records/s off, cold and
-warm, batches bit-equal, train steps fed warm). Exits non-zero if any
-phase fails or if there is no CUDA device; the last line of standard output is a JSON object with the
-device.
+gave) and "label cache" (PRISMER_LABEL_CACHE: records/s off, cold and warm,
+batches bit-equal, train steps fed warm). Exits non-zero if any phase fails
+or if there is no CUDA device; the last line of standard output is a JSON
+object with the device.
 
 The slice: Prismer-BASE, all six experts, 480 px, bf16; serving with beam
 3, max length 20, min length 8, 4-token prompt, batch 8 and 5; fine-tuning
@@ -4550,6 +4558,187 @@ def phase_segment_jpeg(results, card: str):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+IMAGE_FIXTURES = ROOT / "tests" / "data"
+IMAGE_KINDS = ("webp", "gif", "bmp")
+# the 640 x 480 fixtures: timed, then fed to the generator under .jpg names
+IMAGE_BIG = (("webp", "photo_640x480_lossy_q80.webp"),
+             ("webp", "photo_640x480_lossless_16colours.webp"),
+             ("gif", "photo_640x480_16colours.gif"),
+             ("bmp", "photo_640x480_16colours.bmp"))
+IMAGE_RUNS = 50
+
+
+def phase_image_formats(results, card: str):
+    """WebP, GIF and BMP files as web-scraped caption corpora hold them,
+    under .jpg names. Every fixture of tests/data/webp, gif and bmp decodes
+    through its format's function (RGB and Pillow's own mode) and through
+    the loader's read_rgb to the sha256 Pillow gave (expected.json, written
+    where Pillow is); the median decode ms of each 640 x 480 kind over
+    IMAGE_RUNS runs beside the JPEG fixture's; then the segmentation
+    generator's entry point, one model, over the 640 x 480 WebP, GIF and
+    BMP fixtures saved as .jpg and over the same pixels written as PNG
+    (equal label maps, kernel 10 launched), and one Prismer-BASE bf16
+    beam-3 caption batch of those records through load_expert_labels ->
+    experts_to_device -> build_generate_fn, whose ids from the two trees
+    must be equal (kernels 1-5 launched)."""
+    import contextlib
+    import hashlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from prismer_tpu_torch import native
+    from prismer_tpu_torch.data import bmp, experts_to_device, png
+    from prismer_tpu_torch.data.labels import (build_expert_record,
+                                               load_expert_labels, read_rgb)
+    from prismer_tpu_torch.data.loader import default_collate
+    from prismer_tpu_torch.data.transform import Transform
+    from prismer_tpu_torch.experts import generate
+    from prismer_tpu_torch.models.caption import (build_generate_fn,
+                                                  prefix_prompt_ids)
+    from prismer_tpu_torch.tokenizer import synthetic_tokenizer
+
+    native.build()
+    decoders = {"webp": native.decode_webp, "gif": native.decode_gif,
+                "bmp": bmp.decode_bmp}
+    t0 = time.perf_counter()
+    counted = {}
+    for kind in IMAGE_KINDS:
+        expected = json.loads(
+            (IMAGE_FIXTURES / kind / "expected.json").read_text())
+        for name, e in sorted(expected["files"].items()):
+            path = IMAGE_FIXTURES / kind / name
+            data = path.read_bytes()
+            for how, px, key in (
+                    ("decode", decoders[kind](data, "RGB"), ""),
+                    ("read_rgb", read_rgb(str(path)), ""),
+                    ("own mode", decoders[kind](data), "mode_")):
+                if px.dtype == np.bool_:           # hashed as 0 / 1 bytes
+                    px = px.astype(np.uint8)
+                digest = hashlib.sha256(
+                    np.ascontiguousarray(px).tobytes()).hexdigest()
+                expect(list(px.shape) == e[key + "shape"]
+                       and digest == e[key + "sha256"],
+                       f"{kind}/{name} ({how}): {px.shape} sha256 "
+                       f"{digest[:12]}, Pillow gave {e[key + 'shape']} "
+                       f"{e[key + 'sha256'][:12]}")
+        counted[kind] = len(expected["files"])
+    log("  " + ", ".join(f"{n} {k}" for k, n in counted.items())
+        + f" fixtures decode to the pixels of Pillow {expected['pillow']} "
+        f"in RGB and their own mode, and through read_rgb (sha256 equal; "
+        f"{time.perf_counter() - t0:.2f} s)")
+
+    timed = [(kind, IMAGE_FIXTURES / kind / name, decoders[kind])
+             for kind, name in IMAGE_BIG]
+    timed.append(("jpeg", JPEG_FIXTURES / "photo_640x480_q90_420.jpg",
+                  lambda data, mode: native.decode_jpeg(data)))
+    for kind, path, fn in timed:
+        data = path.read_bytes()
+        times = []
+        for _ in range(IMAGE_RUNS):
+            t1 = time.perf_counter()
+            fn(data, "RGB")
+            times.append((time.perf_counter() - t1) * 1e3)
+        log(f"  decode {path.name} ({len(data)} bytes): median "
+            f"{statistics.median(times):.2f} ms, min {min(times):.2f} ms "
+            f"over {IMAGE_RUNS} runs ({host_cpu()}; {card})")
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="formats_", dir=ROOT / "build"))
+    real_load = generate.load_expert_model
+    cached = {}
+
+    def load_once(*a, **kw):
+        if "model" not in cached:
+            cached["model"] = real_load(*a, **kw)
+        return cached["model"]
+
+    names = {"jpg": [], "png": []}
+    try:
+        for kind, name in IMAGE_BIG:
+            stem = f"{kind}_{name.rsplit('.', 1)[0]}"
+            data = (IMAGE_FIXTURES / kind / name).read_bytes()
+            for sub in ("jpg", "png"):
+                (tmp / sub / "images").mkdir(parents=True, exist_ok=True)
+            (tmp / "jpg" / "images" / f"{stem}.jpg").write_bytes(data)
+            png.write_png(str(tmp / "png" / "images" / f"{stem}.png"),
+                          decoders[kind](data, "RGB"))
+            names["jpg"].append(f"{stem}.jpg")
+            names["png"].append(f"{stem}.png")
+        generate.load_expert_model = load_once
+        _zero_counts()
+        t0 = time.perf_counter()
+        try:
+            for sub in ("jpg", "png"):
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = generate.main([
+                        "--task", "seg_coco", "--data_path", str(tmp / sub),
+                        "--save_path", str(tmp / f"labels_{sub}"),
+                        "--batch_size", str(len(IMAGE_BIG))])
+                expect(rc == 0, f"generate.main over {sub} returned {rc}")
+        finally:
+            generate.load_expert_model = real_load
+        seg_launches = _launch_counts(["ms_deform_attn"])["ms_deform_attn"]
+        dt_seg = time.perf_counter() - t0
+        for jpg, pngname in zip(names["jpg"], names["png"]):
+            maps = [png.read_png(str(tmp / f"labels_{sub}" / "seg_coco" / sub
+                                     / "images" / f"{n[:-4]}.png"))
+                    for sub, n in (("jpg", jpg), ("png", pngname))]
+            expect(maps[0].shape == (480, 640), f"{jpg}: label "
+                   f"{maps[0].shape}")
+            expect(np.array_equal(maps[0], maps[1]),
+                   f"{jpg}: labels from the .jpg and the .png differ at "
+                   f"{int((maps[0] != maps[1]).sum())} pixels")
+        expect(seg_launches > 0, "ms_deform_attn was not launched")
+        log(f"  the WebP, GIF and BMP fixtures under .jpg names and their "
+            f"PNG twins give equal seg_coco label maps ({dt_seg:.1f} s, "
+            f"model build included; ms_deform_attn launches "
+            f"{seg_launches}; {card})")
+        cached.clear()
+
+        _, model, _ = serve_setup()
+        gen_fn = build_generate_fn(model)
+        tok = synthetic_tokenizer()
+        tf = Transform(480, train=False)
+        ids, mask = prefix_prompt_ids(tok, FILES_PREFIX, len(IMAGE_BIG))
+        prompt = (torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda())
+        _zero_counts()
+        t0 = time.perf_counter()
+        batches, outs = [], []
+        for sub in ("jpg", "png"):
+            records = []
+            for n in names[sub]:
+                image, labs, info = load_expert_labels(
+                    str(tmp), str(tmp / f"labels_{sub}"), f"images/{n}", sub,
+                    list(FILES_EXPERTS))
+                records.append(build_expert_record(tf(image, labs), info))
+            batch = default_collate(records)
+            batches.append(batch)
+            seqs = gen_fn(experts_to_device(batch, "cuda"), *prompt)
+            outs.append(seqs.cpu())
+        dt_cap = time.perf_counter() - t0
+        counts = _launch_counts(SERVE_KERNELS)
+        same_in = _same_batch(batches[0], batches[1])
+        same_ids = torch.equal(outs[0], outs[1])
+        log(f"  BASE bf16 beam-3 captions of the {len(IMAGE_BIG)} records "
+            f"through load_expert_labels -> experts_to_device -> "
+            f"build_generate_fn: inputs bit-equal {same_in}, ids equal "
+            f"{same_ids} ({dt_cap:.2f} s for both batches); launches "
+            + ", ".join(f"{k}={v}" for k, v in counts.items())
+            + f" ({card})")
+        expect(same_in, "the .jpg and .png records differ")
+        expect(same_ids, "caption ids from the .jpg and .png trees differ")
+        expect(all(counts[k] > 0 for k in SERVE_KERNELS),
+               f"image-formats caption launches {counts}")
+    finally:
+        generate.load_expert_model = real_load
+        cached.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phases "experts parity", "experts generate", "experts demo": the other
 # five label experts, the OCR words' CLIP text encoder, and the demo from
@@ -5751,6 +5940,7 @@ def main(argv=None) -> int:
               ("segment", lambda r: phase_segment(r, card, args.profile,
                                                   tf32_defaults)),
               ("segment jpeg", lambda r: phase_segment_jpeg(r, card)),
+              ("image formats", lambda r: phase_image_formats(r, card)),
               ("experts parity", phase_experts_parity),
               ("experts generate", lambda r: phase_experts_generate(r, card)),
               ("experts demo", lambda r: phase_experts_demo(r, card)),

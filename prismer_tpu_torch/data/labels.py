@@ -14,10 +14,13 @@ Missing or empty files fall back to zeros (dense maps) or all-255
 background (id maps), as the reference does (utils.py:84-110).
 
 Images and labels are uint8 numpy arrays. RGB images are told apart by
-their first bytes: JPEG goes through the port's decoder (native/), PNG
-through data/png.py; anything else raises. Label PNGs of every kind are
-converted to the mode the expert reads as PIL's `convert` would
-(data/png.py).
+their first bytes, as `Image.open` tells them apart, whatever the file's
+name: JPEG, WebP and GIF go through the port's host decoders (native/),
+PNG through data/png.py, BMP and bare DIB through data/bmp.py. Anything
+else raises ValueError naming the bytes it found; so does a file of these
+kinds that Pillow refuses (a cut WebP, a BI_JPEG BMP, ...). Label PNGs of
+every kind are converted to the mode the expert reads as PIL's `convert`
+would (data/png.py).
 
 PRISMER_LABEL_CACHE=<dir>, as in the JAX package: each label PNG's
 converted array is written once to <dir>/<absolute path>.npy (the JAX
@@ -36,10 +39,12 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from prismer_tpu_torch import native
+from prismer_tpu_torch.data import bmp
 from prismer_tpu_torch.data.features import FeatureTables, get_feature_tables
 from prismer_tpu_torch.data.png import SIGNATURE, decode_png, read_png
 
 JPEG_MAGIC = b"\xff\xd8\xff"
+GIF_MAGICS = (b"GIF87a", b"GIF89a")
 
 
 def _label_file(label_path: str, expert: str, dataset: str,
@@ -54,15 +59,22 @@ def _nonempty(path: str) -> bool:
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """uint8 (H, W, 3) pixels of a JPEG or PNG file, as PIL's
-    `Image.open(path).convert("RGB")` gives them."""
+    """uint8 (H, W, 3) pixels of a JPEG, PNG, WebP, GIF, BMP or DIB file,
+    as PIL's `Image.open(path).convert("RGB")` gives them."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(JPEG_MAGIC):
         return native.decode_jpeg(data)
     if data.startswith(SIGNATURE):
         return decode_png(data, "RGB")
-    raise ValueError(f"{path}: neither a JPEG nor a PNG file")
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return native.decode_webp(data, "RGB")
+    if data[:6] in GIF_MAGICS:
+        return native.decode_gif(data, "RGB")
+    if data.startswith(bmp.MAGIC) or bmp.is_dib(data):
+        return bmp.decode_bmp(data, "RGB")
+    raise ValueError(f"{path}: not a JPEG, PNG, WebP, GIF, BMP or DIB file "
+                     f"(first bytes {data[:12].hex(' ')})")
 
 
 def _cache_npy_path(path: str) -> str:
